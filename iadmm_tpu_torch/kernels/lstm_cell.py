@@ -1,0 +1,139 @@
+"""Fused LSTM token cell: CUDA kernel, plain version and autograd wrapper.
+
+Replaces ``iadmm_tpu/kernels/lstm_cell.py::_cell_kernel``.  The kernel
+(``csrc/lstm_cell.cu`` over ``csrc/cell_gemm.cuh``) computes the gate GEMM
+on the tensor cores with the i/f/o/u columns of the same hidden units in
+one tile, so the activations, C' and H' are finished in the epilogue and
+the 4h gate pre-activations never reach device memory.  Its bound on the
+H100 is the H·U GEMM at the bf16 tensor-core rate (see the header of
+``csrc/cell_gemm.cuh``).
+
+:func:`fused_lstm_cell` is a ``torch.autograd.Function`` whose backward
+recomputes the cell with the plain :func:`cells.lstm_apply` at the same gate
+dtype, as the JAX package's ``_bwd`` does.  On CPU tensors the forward runs
+the plain version; on CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..solvers import cells
+from . import _build
+
+CELL_KEYS = ("W", "U", "b", "W_h", "b_h")
+_STATE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def cell_plain(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
+    """Plain PyTorch version of the kernel: the same function."""
+    params = dict(W=W, U=U, b=b, W_h=W_h, b_h=b_h)
+    gate = "bfloat16" if gate_dtype_name == "bfloat16" else None
+    return cells.lstm_apply(params, inputs, H, C, gate_dtype=gate)
+
+
+def check_cell_weights(W, U, b, W_h, b_h, h: int) -> None:
+    """Raise unless the cell weights have the shapes the kernels take for
+    hidden width ``h`` (input width 2)."""
+    want = dict(W=(2, 4 * h), U=(h, 4 * h), b=(4 * h,), W_h=(h, 1),
+                b_h=(1,))
+    got = dict(W=W, U=U, b=b, W_h=W_h, b_h=b_h)
+    bad = {k: tuple(got[k].shape) for k in want
+           if tuple(got[k].shape) != want[k]}
+    if bad:
+        raise ValueError(f"cell weight shapes {bad} do not fit h={h}: "
+                         f"expected {want}")
+
+
+def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
+    """The kernel on CUDA tensors; same contract as :func:`cell_plain`."""
+    if gate_dtype_name != "bfloat16":
+        raise NotImplementedError(
+            "the CUDA cell kernel runs bf16 gates only; the float32-gate "
+            "variant is listed in ROADMAP.md (Queue 2)")
+    if H.dtype not in _STATE_DTYPES or C.dtype not in _STATE_DTYPES:
+        raise TypeError(f"H/C dtypes {H.dtype}/{C.dtype} not in "
+                        f"{_STATE_DTYPES}")
+    B, S, in_dim = inputs.shape
+    h = H.shape[-1]
+    if in_dim != 2 or H.shape != (B, S, h) or C.shape != (B, S, h):
+        raise ValueError(f"bad cell shapes: inputs {tuple(inputs.shape)}, "
+                         f"H {tuple(H.shape)}, C {tuple(C.shape)}")
+    check_cell_weights(W, U, b, W_h, b_h, h)
+    dev = H.device
+    for t in (inputs, C, W, U, b, W_h, b_h):
+        if t.device != dev:
+            raise ValueError("all cell tensors must be on one device")
+    M = B * S
+    bf = torch.bfloat16
+    x = inputs.to(torch.float32).contiguous()
+    Hc, Cc = _build.aligned(H), C.contiguous()
+    Wb = W.to(bf).contiguous()
+    Ub = _build.aligned(U.to(bf))
+    bb = b.to(torch.float32).contiguous()
+    Whb = W_h.reshape(-1).to(bf).contiguous()
+    bhb = b_h.reshape(-1).to(torch.float32).contiguous()
+    H_out = torch.empty_like(Hc)
+    C_out = torch.empty_like(Cc)
+    n_tiles = (h + _build.CELL_HB - 1) // _build.CELL_HB
+    partial = torch.empty((n_tiles, M), dtype=torch.float32, device=dev)
+    delta = torch.empty((B, S), dtype=torch.float32, device=dev)
+    fn = _build.function("lstm_cell", "iadmm_cell_forward",
+                         [_build.P] * 12 + [_build.I] * 4 + [_build.P])
+    code = fn(x.data_ptr(), Hc.data_ptr(), Cc.data_ptr(), Wb.data_ptr(),
+              Ub.data_ptr(), bb.data_ptr(), Whb.data_ptr(), bhb.data_ptr(),
+              H_out.data_ptr(), C_out.data_ptr(), partial.data_ptr(),
+              delta.data_ptr(), M, h, int(H.dtype == bf), int(C.dtype == bf),
+              _build.stream_ptr(dev))
+    _build.check(code, "iadmm_cell_forward")
+    fused_lstm_cell.launches += 1
+    return delta, H_out, C_out
+
+
+def cell_forward(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if H.is_cuda:
+        return cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name)
+    return cell_plain(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name)
+
+
+class _FusedLSTMCell(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gate_dtype_name, inputs, H, C, W, U, b, W_h, b_h):
+        ctx.gate_dtype_name = gate_dtype_name
+        ctx.save_for_backward(inputs, H, C, W, U, b, W_h, b_h)
+        return cell_forward(W, U, b, W_h, b_h, inputs, H, C,
+                            gate_dtype_name)
+
+    @staticmethod
+    def backward(ctx, d_delta, d_H, d_C):
+        saved = [t.detach().requires_grad_(t.is_floating_point())
+                 for t in ctx.saved_tensors]
+        inputs, H, C, W, U, b, W_h, b_h = saved
+        with torch.enable_grad():
+            outs = cell_plain(W, U, b, W_h, b_h, inputs, H, C,
+                              ctx.gate_dtype_name)
+        grads = torch.autograd.grad(outs, saved, (d_delta, d_H, d_C),
+                                    allow_unused=True)
+        return (None,) + tuple(grads)
+
+
+def fused_lstm_cell(params: Dict, inputs, H, C,
+                    gate_dtype_name: str = "float32"):
+    """Fused LSTM token cell; drop-in for :func:`cells.lstm_apply` (same
+    (delta, H', C') contract)."""
+    return _FusedLSTMCell.apply(gate_dtype_name, inputs, H, C,
+                                *(params[k] for k in CELL_KEYS))
+
+
+fused_lstm_cell.launches = 0  # kernel launches, counted by cell_cuda
+
+
+def make_pallas_lstm_apply(gate_dtype: str = "float32"):
+    """cell_apply-compatible callable backed by the fused cell (the name
+    of the JAX package's factory, kept)."""
+    def apply(params, inputs, H, C):
+        return fused_lstm_cell(params, inputs, H, C, gate_dtype)
+    return apply

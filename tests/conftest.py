@@ -36,3 +36,8 @@ def tiny_qp():
     """Small dense QP family batch (8 instances, n=24, mi=12, me=12)."""
     return generators.generate("QP", num_var=24, num_ineq=12, num_eq=12,
                                data_size=8, seed=3)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")

@@ -1,0 +1,164 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; the JAX
+side runs its Pallas kernel in interpret mode.  Tolerances are those of the
+JAX package's own kernel tests: 1e-5 forward and 1e-4 gradients for the
+float32 cell, 2e-2 for the bf16 rollout, rtol 3e-4 / atol 3e-5 for the
+float32 Stage II.  ``test_torch_cuda.py`` holds each CUDA kernel against
+its plain version on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from iadmm_tpu.kernels.lstm_cell import fused_lstm_cell as j_cell
+from iadmm_tpu.kernels.rollout_kernel import fused_rollout as j_rollout
+from iadmm_tpu.kernels.stage2_kernel import fused_stage2 as j_stage2
+from iadmm_tpu.problems import generators, io as jio
+from iadmm_tpu.solvers.step import rho_vector as j_rho_vector
+from iadmm_tpu import types as jtypes
+
+from iadmm_tpu_torch.kernels import lstm_cell as tcell
+from iadmm_tpu_torch.kernels import rollout_kernel as troll
+from iadmm_tpu_torch.kernels import stage2_kernel as ts2
+
+from torch_bridge import (assert_close, jax_lstm_params, params_to_torch,
+                          to_torch)
+
+F32 = torch.float32
+
+
+def _cell_inputs(B=2, S=40, h=16, seed=0):
+    params = jax_lstm_params(seed, h, 4)
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, S, 2), (B, S, h), (B, S, h))]
+    return params, [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("gate,tol", [("float32", 1e-5),
+                                      ("bfloat16", 1e-2)])
+def test_cell_forward_matches_pallas(gate, tol):
+    params, (x, H, C) = _cell_inputs()
+    with pltpu.force_tpu_interpret_mode():
+        jd, jH, jC = j_cell(params, x, H, C, gate)
+    tp = params_to_torch(params, dtype=F32)
+    td, tH, tC = tcell.fused_lstm_cell(tp, to_torch(x), to_torch(H),
+                                       to_torch(C), gate)
+    assert_close(td, jd, tol, tol / 10, "delta")
+    assert_close(tH, jH, tol, tol / 10, "H")
+    assert_close(tC, jC, tol, tol / 10, "C")
+
+
+def test_cell_gradients_match_pallas():
+    params, (x, H, C) = _cell_inputs()
+
+    def jloss(p, i, h, c):
+        d, H2, C2 = j_cell(p, i, h, c, "float32")
+        return (d ** 2).sum() + (H2 * C2).sum()
+
+    with pltpu.force_tpu_interpret_mode():
+        jg = jax.grad(jloss, argnums=(0, 1, 2, 3))(params, x, H, C)
+    tp = {k: v.requires_grad_(True)
+          for k, v in params_to_torch(params, dtype=F32).items()}
+    tx, tH, tC = (to_torch(a).requires_grad_(True) for a in (x, H, C))
+    d, H2, C2 = tcell.fused_lstm_cell(tp, tx, tH, tC, "float32")
+    ((d ** 2).sum() + (H2 * C2).sum()).backward()
+    for k in tcell.CELL_KEYS:
+        assert_close(tp[k].grad, jg[0][k], 1e-4, 1e-5, k)
+    for name, t, g in zip(("inputs", "H", "C"), (tx, tH, tC), jg[1:]):
+        assert_close(t.grad, g, 1e-4, 1e-5, name)
+
+
+def test_cell_cuda_rejects_float32_gates():
+    params, (x, H, C) = _cell_inputs()
+    tp = params_to_torch(params, dtype=F32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcell.cell_cuda(*(tp[k] for k in tcell.CELL_KEYS), to_torch(x),
+                         to_torch(H), to_torch(C), "float32")
+
+
+def test_cuda_wrappers_reject_bad_shapes():
+    """The shape checks run before any CUDA call, so they hold on the CPU."""
+    params, (x, H, C) = _cell_inputs()
+    tp = params_to_torch(params, dtype=F32)
+    bad = dict(tp, W_h=tp["W_h"][:-1])
+    with pytest.raises(ValueError, match="W_h"):
+        tcell.cell_cuda(*(bad[k] for k in tcell.CELL_KEYS), to_torch(x),
+                         to_torch(H), to_torch(C), "bfloat16")
+    _, tdata = _qp(2, 8, 4, 4, 3)
+    with pytest.raises(ValueError, match="'b'"):
+        troll._rollout_cuda(dict(tp, b=tp["b"][:-1]), tdata, 16, 2, 6e-6)
+    rho = torch.ones((2, 8))
+    state = to_torch(jtypes.init_state(2, 8, 8, 1))
+    with pytest.raises(ValueError, match="Ainv"):
+        ts2.stage2_cuda(state, tdata, rho, torch.eye(15).expand(2, 15, 15),
+                        num_iters=2, sigma=1e-4, refine=0)
+
+
+def _qp(B, n, mi, me, seed):
+    ds = generators.generate("QP", num_var=n, num_ineq=mi, num_eq=me,
+                             data_size=B, seed=seed)
+    jdata = jio.to_qp_batch(ds)
+    return jdata, to_torch(jdata, dtype=F32)
+
+
+def test_rollout_matches_pallas():
+    B, n, mi, me, h, K = 3, 20, 10, 10, 16, 6
+    jdata, tdata = _qp(B, n, mi, me, 11)
+    params = jax_lstm_params(2, h, K)
+    with pltpu.force_tpu_interpret_mode():
+        jx, jy, jz = j_rollout(params, jdata, hidden=h, K=K, sigma=6e-6)
+    tx, ty, tz = troll.fused_rollout(params_to_torch(params, dtype=F32),
+                                     tdata, hidden=h, K=K, sigma=6e-6)
+    assert_close(tx, jx, 2e-2, 2e-2, "x")
+    assert_close(ty, jy, 2e-2, 2e-2, "y")
+    assert_close(tz, jz, 2e-2, 2e-2, "z")
+
+
+def _stage2_setup(B=2, n=20, mi=12, me=10):
+    jdata, tdata = _qp(B, n, mi, me, 11)
+    rng = np.random.default_rng(0)
+    m = mi + me
+    st = jtypes.IterState(
+        x=jnp.asarray(rng.standard_normal((B, n)) * 0.1, jnp.float32),
+        y=jnp.asarray(rng.standard_normal((B, m)) * 0.1, jnp.float32),
+        z=jnp.asarray(rng.standard_normal((B, m)) * 0.1, jnp.float32),
+        xv=jnp.asarray(rng.standard_normal((B, n + m)) * 0.1, jnp.float32),
+        H=jnp.zeros((B, 1, 1), jnp.float32),
+        C=jnp.zeros((B, 1, 1), jnp.float32))
+    rho = j_rho_vector(jnp.float32(0.1), jdata.eq_mask)
+    return jdata, tdata, st, to_torch(st), rho, to_torch(rho)
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+def test_stage2_kkt_matches_pallas(refine):
+    jdata, tdata, jst, tst, jrho, trho = _stage2_setup()
+    N = 15
+    jo, jpr, jdr = j_stage2(jst, jdata, jrho, num_iters=N, sigma=1e-4,
+                            solver="kkt", refine=refine, interpret=True)
+    to, tpr, tdr = ts2.fused_stage2(tst, tdata, trho, num_iters=N,
+                                    sigma=1e-4, solver="kkt", refine=refine)
+    n = tdata.num_var
+    for f in ("x", "y", "z"):
+        assert_close(getattr(to, f), getattr(jo, f), 3e-4, 3e-5, f)
+    assert_close(to.xv[:, :n], jo.xv[:, :n], 3e-4, 3e-5, "xt")
+    # ν = ρ∘(A0·xt − z) + y multiplies float32 rounding in A0·xt − z by
+    # ρ_eq = 1e3·ρ = 100 on the equality rows
+    assert_close(to.xv[:, n:], jo.xv[:, n:], 3e-4, 3e-3, "nu")
+    assert tpr.shape == (2, N) and tdr.shape == (2, N)
+    assert_close(tpr, jpr, 3e-4, 3e-5, "pr trace")
+    assert_close(tdr, jdr, 3e-4, 3e-5, "dr trace")
+
+
+def test_stage2_solver_names():
+    _, tdata, _, tst, _, trho = _stage2_setup(B=1, n=8, mi=4, me=4)
+    for solver in ("direct", "cg"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ts2.fused_stage2(tst, tdata, trho, num_iters=2, solver=solver)
+    with pytest.raises(ValueError, match="unknown stage2 solver"):
+        ts2.fused_stage2(tst, tdata, trho, num_iters=2, solver="qr")
