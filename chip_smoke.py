@@ -17,26 +17,43 @@ then runs five phases at the flagship shape QP_1000_500_500 / h=800:
   (d) serving: ``make_solver`` with the fast profile answers 3 requests of
       B=8 fresh instances (rollout_impl='fused', Stage II 'fused');
   (e) the same with rollout_impl='step', whose cell goes through the cell
-      kernel.
+      kernel;
+  (f) the training kernels (forward and backward of a TBPTT chunk) against
+      their plain versions at B=2: at J=6 the forward's outputs, the
+      backward on the same streams and every gradient leaf end to end; at
+      J=100 relative to the plain pair's own rounding gap (the larger of
+      two permutations of the hidden units); the backward twice, bitwise
+      equal; timed at J=100;
+  (g) training: ``harness.train`` with train_backend='fused' and the fast
+      profile, 2 epochs on a generated QP_1000_500_500 dataset (16
+      instances, B=2, J = outer_T = 100), then ``make_solver`` serves one
+      B=8 request from the reloaded checkpoint;
+  (h) one chunk update on each backend from the same params ('step' runs
+      the cell kernel): times, and the loss and gradient gap between them.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before (d) and read
-just after (e).  The second-to-last line is the per-kernel JSON, the last
-line ``{"ok": true, "device": {...}}``.  Weights are random from a seed (no
+just after (e) (serving), and zeroed just before (g) and read just after it
+(training).  The second-to-last line is the per-kernel JSON, the last line
+``{"ok": true, "device": {...}}``.  Weights are random from a seed (no
 trained checkpoint is in the repository).  Exits non-zero without a CUDA
-device.  Longer output (ptxas reports) goes to ``chiprun_out/chip_smoke/``.
+device.  Longer output (ptxas reports) goes to ``chiprun_out/chip_smoke/``;
+the training run's checkpoints go to ``results/chip_smoke/`` and are
+removed at the end.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
+TRAIN_DIR = os.path.join(ROOT, "results", "chip_smoke")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s.
 HBM_BPS = 3.35e12
@@ -49,6 +66,11 @@ SIGMA = 6e-6
 K_CHECK = 6
 MAX_POLISH_RATIO = 1e-2
 MAX_GAP_OVER_ROUNDING = 4.0
+TRAIN_BATCH, TRAIN_DATA, TRAIN_EPOCHS = 2, 16, 2
+MAX_LEAF_GAP = 2e-2   # per-leaf normalised gradient gap (JAX bf16 test)
+MAX_LOSS_GAP = 1e-3   # step vs fused chunk loss (2.1e-5 measured on an H100)
+GRAD_KEYS = ("W", "U", "b", "W_h", "b_h", "rho", "alpha")
+DEV = "cuda"
 
 
 class PhaseError(RuntimeError):
@@ -104,7 +126,7 @@ def qp_batch(B, seed, n=N_VAR, mi=N_INEQ, me=N_EQ):
     from iadmm_tpu_torch.problems import generate, to_qp_batch
     ds = generate("QP", num_var=n, num_ineq=mi, num_eq=me, data_size=B,
                   seed=seed)
-    return to_qp_batch(ds, device="cuda")
+    return to_qp_batch(ds, device=DEV)
 
 
 def phase_cell(params, report):
@@ -438,6 +460,394 @@ def small_reference_check():
     say("d0 small reference", max_abs_err=errs, tol="2e-2 + 2e-2|ref|")
 
 
+def leaf_gaps(outs, refs):
+    """max |out − ref| / max |ref| of each pair (shapes of ref)."""
+    return [float((a.reshape(b.shape).float() - b.float()).abs().max())
+            / max(float(b.abs().max()), 1e-30) for a, b in zip(outs, refs)]
+
+
+def train_inputs(params, data):
+    """(weights, start state, data) tuples of the training kernels for a
+    chunk from the zero state, as the harness starts each batch."""
+    import torch
+    from iadmm_tpu_torch.solvers.step import rho_vector
+    from iadmm_tpu_torch.types import init_state
+    st = init_state(data.batch, data.num_var, data.num_constr, HIDDEN,
+                    device=DEV)
+    state = (st.x, st.y, st.z, st.xv, st.H, st.C)
+    dd = (data.Q, data.A0, data.p, data.zl, data.zu,
+          rho_vector(1.0, data.eq_mask).to(torch.float32))
+    return tuple(params[k] for k in GRAD_KEYS), state, dd
+
+
+def unpermute_grads(grads, perm):
+    import torch
+    h = len(perm)
+    inv = torch.argsort(perm)
+    icols = torch.argsort(torch.cat([g * h + perm for g in range(4)]))
+    dW, dU, db, dWh, dbh, drho, dalpha = grads
+    return (dW[:, icols], dU[inv][:, icols], db[icols], dWh[inv], dbh, drho,
+            dalpha)
+
+
+def device_time_by_kernel(fn, top=12):
+    """{CUDA kernel name: device ms} of one call of ``fn`` under
+    torch.profiler, largest first; the error text if the profiler cannot
+    trace the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "device_time_total", 0.0)
+            if us:
+                rows.append((ev.key[:60], us / 1e3, ev.count))
+    except Exception as e:  # a measurement aid: report, do not stop the run
+        return {"error": repr(e)[:200]}
+    rows.sort(key=lambda r: -r[1])
+    return {k: dict(ms=ms, calls=c) for k, ms, c in rows[:top]}
+
+
+def phase_train_kernels(params, data, report):
+    """(f): the training kernels against their plain versions."""
+    import torch
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    weights, state, dd = train_inputs(params, data)
+    B, n = data.p.shape
+    m = data.num_constr
+    S, h, M = n + m, HIDDEN, B * (n + m)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(fwd, bwd, w, J):
+        kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
+        pr, dr, final, streams = fwd(w, state, dd, **kw)
+        d = torch.full((B, J), 1.0 / (B * K_ITERS), device=DEV)
+        grads, _ = bwd(w, dd, streams, tuple(torch.zeros_like(f)
+                                             for f in final), d, d, **kw)
+        return pr, dr, final, streams, grads, d
+
+    kernel = (tr.train_fwd_cuda, tr.train_bwd_cuda)
+    plain = (tr.train_fwd_plain, tr.train_bwd_plain)
+    # J = K_CHECK: the forward outputs; the backward kernel on the plain
+    # forward's streams; every leaf end to end, or, for a leaf that is a
+    # cancelling sum, within 2x the gap the plain backward itself shows when
+    # it is fed the kernel's streams (its own sensitivity to rounding)
+    J = K_CHECK
+    f0, b0 = tr.train_fwd_cuda.launches, tr.train_bwd_cuda.launches
+    kpr, kdr, kfin, kstr, kg, d = run(*kernel, weights, J)
+    torch.cuda.synchronize()
+    if (tr.train_fwd_cuda.launches != f0 + J
+            or tr.train_bwd_cuda.launches != b0 + J):
+        raise PhaseError("train: the wrappers did not launch J steps")
+    ppr, pdr, pfin, pstr, pg, _ = run(*plain, weights, J)
+    errs = [compare(f"train fwd {nm}", a, b, 1e-2 * float(b.abs().max()),
+                    2e-2) for nm, a, b in zip(
+                        ("pr", "dr", "x", "y", "z", "xv", "H", "C"),
+                        (kpr, kdr, *kfin), (ppr, pdr, *pfin))]
+    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
+    zero = tuple(torch.zeros_like(f) for f in kfin)
+    ks_g, _ = tr.train_bwd_cuda(weights, dd, pstr, zero, d, d, **kw)
+    pk_g, _ = tr.train_bwd_plain(weights, dd, kstr, zero, d, d, **kw)
+    same = leaf_gaps(ks_g, pg)
+    e2e = leaf_gaps(kg, pg)
+    own = leaf_gaps(pk_g, pg)
+    for k, sg, eg, og in zip(GRAD_KEYS, same, e2e, own):
+        if sg > MAX_LEAF_GAP:
+            raise PhaseError(f"train bwd on the plain streams: grad[{k}] "
+                             f"gap {sg:.3e} > {MAX_LEAF_GAP}")
+        if eg > MAX_LEAF_GAP and eg > 2.0 * og:
+            raise PhaseError(f"train: grad[{k}] gap {eg:.3e} exceeds "
+                             f"{MAX_LEAF_GAP} and 2x the plain backward's "
+                             f"own gap {og:.3e}")
+    del kstr, pstr
+    grad_abs = max(float((a.reshape(b.shape) - b).abs().max())
+                   for a, b in zip(kg, pg))
+    # J = K_ITERS: relative to the plain pair's own rounding gap
+    J = K_ITERS
+    kpr, kdr, kfin, kstr, kg, d = run(*kernel, weights, J)
+    ppr, pdr, pfin, _, pg, _ = run(*plain, weights, J)
+    # The plain pair's own rounding gap differs from one summation order
+    # to the next by up to 7x at J=100 (0.055 and 0.40 for two
+    # permutations), so the yardstick is the larger of two.
+    ref_out = (ppr, pdr, *pfin[:4], *pg)
+    gap_k = max(leaf_gaps((kpr, kdr, *kfin[:4], *kg), ref_out))
+    gap_p = 0.0
+    for seed in (3, 4):
+        perm = torch.randperm(HIDDEN,
+                              generator=torch.Generator().manual_seed(seed))
+        pw = tuple(permute_hidden(params, perm.to(DEV))[k]
+                   for k in GRAD_KEYS)
+        qpr, qdr, qfin, _, qg, _ = run(*plain, pw, J)
+        qg = unpermute_grads(qg, perm.to(DEV))
+        gap_p = max(gap_p, max(leaf_gaps((qpr, qdr, *qfin[:4], *qg),
+                                         ref_out)))
+        del qfin, qg
+    if gap_k > MAX_GAP_OVER_ROUNDING * gap_p:
+        raise PhaseError(f"train: gap {gap_k:.3e} after {J} steps exceeds "
+                         f"{MAX_GAP_OVER_ROUNDING}x the plain pair's own "
+                         f"rounding gap {gap_p:.3e}")
+    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
+    zero = tuple(torch.zeros_like(f) for f in kfin)
+    again, _ = tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(kg, again)):
+        raise PhaseError("train bwd: two runs gave different gradients")
+    del pfin
+    fwd_ms = cuda_ms(lambda: tr.train_fwd_cuda(weights, state, dd, **kw),
+                     reps=2)
+    bwd_ms = cuda_ms(lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d,
+                                               **kw), reps=2)
+    fwd_plain_ms = cuda_ms(lambda: tr.train_fwd_plain(weights, state, dd,
+                                                      **kw), reps=1, warmup=0)
+    pstr = tr.train_fwd_plain(weights, state, dd, **kw)[3]
+    bwd_plain_ms = cuda_ms(lambda: tr.train_bwd_plain(weights, dd, pstr, zero,
+                                                      d, d, **kw),
+                           reps=1, warmup=0)
+    del pstr
+    breakdown = device_time_by_kernel(
+        lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw))
+    Hk = kstr[0][0].reshape(M, h)
+    Ub = params["U"].to(torch.bfloat16)
+    dpre = torch.randn((M, 4 * h), device=DEV).to(torch.bfloat16)
+    lib_step = cuda_ms(lambda: (torch.matmul(Hk, Ub),
+                                torch.matmul(dpre, Ub.T),
+                                torch.matmul(Hk.T, dpre)), reps=10)
+    peak = torch.cuda.max_memory_allocated()
+    data_bytes = (B * (n * n + m * n) * 2 + B * (n + 3 * m) * 4
+                  + (2 * 4 * h + h * 4 * h + h) * 2 + (4 * h + 1) * 4
+                  + 2 * K_ITERS * 4)
+    stream_bytes = J * B * S * h * 6
+    mv_ops = 2.0 * B * (n * n + 2 * m * n)
+    gemm_ops = 2.0 * M * h * 4 * h
+    fb, fby = bound_ms(stream_bytes + data_bytes + B * J * 8,
+                       bf16_ops=J * (gemm_ops + 3 * mv_ops),
+                       f32_ops=J * M * (2.0 * 2 * 4 * h + 20.0 * h))
+    bb, bby = bound_ms(stream_bytes + data_bytes
+                       + (2 * 4 * h + h * 4 * h + 5 * h + 1 + 2 * J) * 4,
+                       bf16_ops=J * (3 * gemm_ops + 6 * mv_ops),
+                       f32_ops=J * M * (4.0 * 2 * 4 * h + 40.0 * h))
+    row = dict(shape=dict(B=B, n=n, m=m, h=h, J_check=K_CHECK, J=J),
+               max_abs_err_fwd=max(e[0] for e in errs),
+               max_rel_err_fwd=max(e[1] for e in errs),
+               max_abs_err_grad=grad_abs,
+               tol=("fwd: 1e-2·max|ref| + 2e-2|ref| per output at J=6; "
+                    "grads: per-leaf max|Δ|/max|ref| <= 2e-2 (bwd on the "
+                    "plain streams, and end to end unless the plain bwd "
+                    "fed the kernel's streams shows half as much); J=100: "
+                    "max gap <= 4x the larger of the plain pair's gaps under "
+                    "two hidden-unit permutations"),
+               grad_gap_same_streams=dict(zip(GRAD_KEYS, same)),
+               grad_gap_end_to_end=dict(zip(GRAD_KEYS, e2e)),
+               grad_gap_plain_on_kernel_streams=dict(zip(GRAD_KEYS, own)),
+               rel_gap_at_J100=gap_k,
+               plain_vs_permuted_plain_rel_gap_at_J100=gap_p,
+               bitwise_repeat=True,
+               fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
+               bwd_plain_ms=bwd_plain_ms, fwd_bound_ms=fb, fwd_bound_by=fby,
+               bwd_bound_ms=bb, bwd_bound_by=bby,
+               bwd_library_ms=J * lib_step,
+               library_note=("J x torch.matmul of one step's three bf16 "
+                             "GEMMs (H_k·U, dpre·Uᵀ, H_kᵀ·dpre): a yardstick "
+                             "of the GEMMs, not of the backward"),
+               max_memory_allocated_bytes=peak,
+               bwd_device_ms_by_kernel=breakdown)
+    say("f train kernels", **row)
+    report["train_kernels"] = row
+
+
+def unported_bounds():
+    """Bounds of the TPU kernels not ported yet, from their shapes: the
+    segment pair at the flagship chunk (B=2, J=100, S=2000, h=800) and the
+    BSR matvec at scripts/bench_sparse.py's default (B=8, n=1000, banded
+    half-widths 8..256, (8, 128) bf16 tiles, one matvec)."""
+    import numpy as np
+    B, J, n, m, h = TRAIN_BATCH, K_ITERS, N_VAR, N_INEQ + N_EQ, HIDDEN
+    M = B * (n + m)
+    gemm = 2.0 * M * h * 4 * h
+    mv = 2.0 * B * (n * n + 2 * m * n)
+    data = B * (n * n + m * n) * 2 + (2 * 4 * h + h * 4 * h + h) * 2
+    ckpt = M * h * 8   # the chunk's start H, C (float32), read once
+    out = {"fwd_seg (train_rollout.py:147)": bound_ms(
+        data + ckpt, bf16_ops=J * (gemm + 3 * mv),
+        f32_ops=J * M * (2.0 * 2 * 4 * h + 20.0 * h)),
+        "bwd_seg (train_rollout.py:664)": bound_ms(
+        data + ckpt + (h * 4 * h + 2 * 4 * h) * 4,
+        bf16_ops=J * (4 * gemm + 8 * mv),
+        f32_ops=J * M * (6.0 * 2 * 4 * h + 60.0 * h))}
+    nb, tm, tn = 1000, 8, 128
+    idx = np.arange(nb)
+    for w in (8, 16, 64, 128, 256):
+        band = np.abs(idx[:, None] - idx[None, :]) <= w
+        rows, cols = -(-nb // tm), -(-nb // tn)
+        pad = np.zeros((rows * tm, cols * tn), bool)
+        pad[:nb, :nb] = band
+        tiles = int(pad.reshape(rows, tm, cols, tn).any(axis=(1, 3)).sum())
+        out[f"bsr_matvec w={w} ({tiles} tiles/instance)"] = bound_ms(
+            8 * (tiles * (tm * tn * 2 + 4) + nb * 8),
+            bf16_ops=8 * 2.0 * tiles * tm * tn)
+    rows = {k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in out.items()}
+    say("bounds of the kernels not ported", **rows)
+    return rows
+
+
+def train_counters():
+    from iadmm_tpu_torch.kernels import lstm_cell, train_rollout
+    return (lstm_cell.fused_lstm_cell, train_rollout.train_fwd_cuda,
+            train_rollout.train_bwd_cuda)
+
+
+def phase_train(report):
+    """(g): harness.train on the fused backend, then serve from the
+    checkpoint."""
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.api import make_solver
+    from iadmm_tpu_torch.config import ExperimentConfig
+    from iadmm_tpu_torch.convert import params_from_jax
+    from iadmm_tpu_torch.problems import generate
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    from iadmm_tpu_torch.train import checkpoint as ckpt
+    from iadmm_tpu_torch.train.harness import train
+    t0 = time.perf_counter()
+    ds = generate("QP", num_var=N_VAR, num_ineq=N_INEQ, num_eq=N_EQ,
+                  data_size=TRAIN_DATA, seed=7)
+    gen_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    cfg = ExperimentConfig.from_dict(dict(
+        prob_type="QP", num_var=N_VAR, num_ineq=N_INEQ, num_eq=N_EQ,
+        data_size=TRAIN_DATA, hidden_dim=HIDDEN, sigma=SIGMA,
+        outer_T=K_ITERS, truncated_length=K_ITERS, batch_size=TRAIN_BATCH,
+        lr=5e-5, num_epoch=TRAIN_EPOCHS, val_frac=0.125, test_frac=0.0,
+        eq_tol=1e9, use_pallas=True, gate_dtype="bfloat16",
+        matvec_mode="bf16", train_backend="fused", save_dir=TRAIN_DIR))
+    p0 = lstm_init(torch.Generator().manual_seed(cfg.seed), 2, HIDDEN,
+                   K_ITERS, device=DEV)
+    counters = train_counters()
+    for c in counters:   # the training path, counted from 0
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(cfg, ds, verbose=True, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(cell=counters[0].launches, train_fwd=counters[1].launches,
+                    train_bwd=counters[2].launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = int(TRAIN_DATA * (1 - cfg.val_frac)) // TRAIN_BATCH
+    chunks = TRAIN_EPOCHS * n_batches * (cfg.outer_T // cfg.truncated_length)
+    losses = [h["train_loss"] for h in res.history]
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_EPOCHS:
+        raise PhaseError(f"g train: losses {losses}")
+    for k in ("train_fwd", "train_bwd"):
+        if launches[k] != chunks * cfg.truncated_length:
+            raise PhaseError(f"g train: {k} launched {launches[k]} steps, "
+                             f"expected {chunks} chunks x "
+                             f"{cfg.truncated_length}")
+    moved = max(float((res.params[k] - p0[k]).abs().max()) for k in p0)
+    if not moved > 0:
+        raise PhaseError("g train: the parameters did not change")
+    payload = ckpt.load_checkpoint(res.checkpoint_path)
+    loaded = params_from_jax(payload["params"], device=DEV)
+    solve = make_solver(loaded, hidden_dim=HIDDEN, num_iters=K_ITERS,
+                        sigma=SIGMA, feas_rest_num=POLISH_STEPS,
+                        use_pallas=True, gate_dtype="bfloat16",
+                        matvec_mode="bf16", rollout_impl="fused",
+                        stage2_impl="fused")
+    out = solve(qp_batch(SERVE_BATCH, seed=300))
+    for f in ("x", "y", "z", "primal_res", "dual_res", "obj"):
+        if not bool(getattr(out, f).isfinite().all()):
+            raise PhaseError(f"g serve from checkpoint: non-finite {f}")
+    row = dict(config="QP_1000_500_500 h=800, B=2, J=outer_T=100, fast "
+                      "profile, train_backend='fused'",
+               dataset_s=gen_s, train_s=train_s,
+               epochs=[{k: h[k] for k in ("epoch", "train_loss", "val_obj",
+                                          "train_time", "val_time")}
+                       for h in res.history],
+               chunks=chunks, launches=launches,
+               max_param_change=moved, checkpoint=os.path.relpath(
+                   res.checkpoint_path, ROOT),
+               served_primal_res_max=float(out.primal_res.max()),
+               max_memory_allocated_bytes=peak)
+    say("g train", **row)
+    report["train"] = row
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return launches
+
+
+def phase_step_vs_fused(params, data, report):
+    """(h): one chunk update on each backend from the same params."""
+    import torch
+    from iadmm_tpu_torch.kernels import lstm_cell
+    from iadmm_tpu_torch.kernels.train_rollout import make_fused_chunk_loss
+    from iadmm_tpu_torch.solvers.rollouts import chunk_loss
+    from iadmm_tpu_torch.solvers.step import make_lstm_step
+    from iadmm_tpu_torch.train.harness import make_optimizer, \
+        make_train_chunk
+    from iadmm_tpu_torch.types import init_state
+    B, n = data.p.shape
+    m = data.num_constr
+    step_fn = make_lstm_step(use_pallas=True, gate_dtype="bfloat16",
+                             matvec_mode="bf16")
+    fused = make_fused_chunk_loss(num_var=n, num_constr=m, batch=B,
+                                  hidden=HIDDEN, sigma=SIGMA,
+                                  chunk_len=K_ITERS, outer_T=K_ITERS,
+                                  K_total=K_ITERS)
+
+    def step_loss(p, st, dat, t0):
+        return chunk_loss(step_fn, p, st, dat, SIGMA, K_ITERS, K_ITERS, t0)
+
+    rows = {}
+    for name, loss_fn in (("fused", fused), ("step", step_loss)):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        st = init_state(B, n, m, HIDDEN, device=DEV)
+        loss, _ = loss_fn(p, st, data, 0)
+        loss.backward()
+        grads = [p[k].grad.detach().clone() for k in GRAD_KEYS]
+        body = make_train_chunk(None, make_optimizer(p, 5e-5), K_ITERS,
+                                K_ITERS, SIGMA, loss_fn=loss_fn)
+        before = lstm_cell.fused_lstm_cell.launches
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            body(p, st, data, 0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rows[name] = dict(loss=float(loss.detach()), grads=grads, ms=times,
+                          cell_launches=(lstm_cell.fused_lstm_cell.launches
+                                         - before) // 2)
+    gaps = leaf_gaps(rows["step"]["grads"], rows["fused"]["grads"])
+    ms = {k: min(r["ms"]) for k, r in rows.items()}
+    row = dict(batch=B, J=K_ITERS,
+               chunk_update_ms={k: r["ms"] for k, r in rows.items()},
+               instance_iters_per_s={k: B * K_ITERS / (v / 1e3)
+                                     for k, v in ms.items()},
+               loss={k: r["loss"] for k, r in rows.items()},
+               loss_rel_gap=abs(rows["step"]["loss"] - rows["fused"]["loss"])
+               / abs(rows["fused"]["loss"]),
+               grad_gap_step_vs_fused=dict(zip(GRAD_KEYS, gaps)),
+               step_cell_launches_per_update=rows["step"]["cell_launches"],
+               loss_gate=MAX_LOSS_GAP,
+               note=("gradients not gated: the step route's loss uses "
+                     "float32 residual matvecs and float32 H/C carries "
+                     "through the cell, the fused route bf16 residual "
+                     "matvecs and a bf16 H stream, so b and b_h (cancelling "
+                     "sums) differ by about 3%"))
+    say("h step vs fused", **row)
+    if not row["loss_rel_gap"] <= MAX_LOSS_GAP:
+        raise PhaseError(f"h: the two backends' chunk losses differ by "
+                         f"{row['loss_rel_gap']:.3e} > {MAX_LOSS_GAP}")
+    report["step_vs_fused"] = row
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -494,6 +904,16 @@ def main() -> int:
                                   for k in ("cell", "rollout", "stage2"))
     say("main path launches", fused=d, step=e)
 
+    data_t = qp_batch(TRAIN_BATCH, seed=2)
+    from iadmm_tpu_torch.scaling import scale_batch
+    scaled_t, _ = scale_batch(data_t)
+    phase_train_kernels(params, scaled_t, report)
+    g = phase_train(report)
+    cell_all += g["cell"]
+    say("training path launches", **g)
+    phase_step_vs_fused(params, scaled_t, report)
+    report["unported_bounds"] = unported_bounds()
+
     def entry(name, src, replaces, key, launches):
         r = report[key]
         return dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -502,6 +922,9 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r.get("library_ms"))
 
+    tk = report["train_kernels"]
+    train_src = "iadmm_tpu_torch/kernels/csrc/train_{}.cu"
+
     kernels = [
         entry("lstm_cell", "iadmm_tpu_torch/kernels/csrc/lstm_cell.cu",
               "iadmm_tpu/kernels/lstm_cell.py:49", "cell", cell_all),
@@ -509,6 +932,18 @@ def main() -> int:
               "iadmm_tpu/kernels/rollout_kernel.py:56", "rollout", roll_all),
         entry("stage2_kkt", "iadmm_tpu_torch/kernels/csrc/stage2.cu",
               "iadmm_tpu/kernels/stage2_kernel.py:59", "stage2", s2_all),
+        dict(name="train_fwd", route="cuda", source=train_src.format("fwd"),
+             replaces="iadmm_tpu/kernels/train_rollout.py:256",
+             launches=g["train_fwd"], max_abs_err=tk["max_abs_err_fwd"],
+             ms=tk["fwd_ms"], plain_ms=tk["fwd_plain_ms"],
+             bound_ms=tk["fwd_bound_ms"], bound_by=tk["fwd_bound_by"],
+             library_ms=None),
+        dict(name="train_bwd", route="cuda", source=train_src.format("bwd"),
+             replaces="iadmm_tpu/kernels/train_rollout.py:397",
+             launches=g["train_bwd"], max_abs_err=tk["max_abs_err_grad"],
+             ms=tk["bwd_ms"], plain_ms=tk["bwd_plain_ms"],
+             bound_ms=tk["bwd_bound_ms"], bound_by=tk["bwd_bound_by"],
+             library_ms=tk["bwd_library_ms"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -35,4 +35,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum of v over the block in a fixed order: each warp's sum, then the warp
+// sums in warp order by thread 0 (deterministic).  scratch: 33 floats of
+// shared memory; every thread of the block must call it.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += scratch[w];
+    scratch[32] = s;
+  }
+  __syncthreads();
+  return scratch[32];
+}
+
 }  // namespace iadmm

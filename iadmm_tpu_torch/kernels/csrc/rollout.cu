@@ -8,7 +8,7 @@
 // SMs.  Here the host loops over K and each iteration is six launches that
 // spread every instance over many CTAs:
 //   1. colpass(xv)        Q·u + A0ᵀ·ν partials and A0·u   (kkt_matvec.cuh)
-//   2. finish(pass 1)     r = Ã·xv − b̃
+//   2. finish(pass 1)     r = Ã·xv − b̃                   (admm_step.cuh)
 //   3. colpass(r)
 //   4. finish(pass 2)     g = Ã·r
 //   5. cell GEMM          gates, C (in place), H' (ping-pong), delta
@@ -27,77 +27,10 @@
 // ρ_row = σ(ρ_t)·(1e3 on equality rows), α = 2σ(α_t),
 // z = min(max(z_t + y/ρ, zl), zu) with z-relaxation off (:145-154).
 
+#include "admm_step.cuh"
 #include "cell_gemm.cuh"
-#include "kkt_matvec.cuh"
-
-namespace {
 
 using namespace iadmm;
-
-// pass 1: out = Ã·xv − b̃ ; pass 2: out = Ã·r.  v is the vector the matvec
-// pass consumed, (B, n+m).
-__global__ void finish_kernel(int pass, const float* __restrict__ partial,
-                              const float* __restrict__ rowdot, int nchunks,
-                              const float* __restrict__ v,
-                              const float* __restrict__ x,
-                              const float* __restrict__ y,
-                              const float* __restrict__ z,
-                              const float* __restrict__ p,
-                              const float* __restrict__ rho_raw,
-                              const float* __restrict__ rhom, int t,
-                              float sigma, float* __restrict__ out, int n,
-                              int m, int B) {
-  const int S = n + m;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * S) return;
-  const int b = idx / S, s = idx % S;
-  if (s < n) {
-    float top = kkt::sum_partials(partial, b, nchunks, n, s) + sigma * v[idx];
-    if (pass == 1) top -= sigma * x[b * n + s] - p[b * n + s];
-    out[idx] = top;
-  } else {
-    const int k = b * m + (s - n);
-    const float rho = sigmoidf(rho_raw[t]) * rhom[k];
-    float bot = rowdot[k] - v[idx] / rho;
-    if (pass == 1) bot -= z[k] - y[k] / rho;
-    out[idx] = bot;
-  }
-}
-
-__global__ void update_kernel(const float* __restrict__ partial, int ntiles,
-                              const float* __restrict__ bh,
-                              float* __restrict__ xv, float* __restrict__ x,
-                              float* __restrict__ y, float* __restrict__ z,
-                              const float* __restrict__ zl,
-                              const float* __restrict__ zu,
-                              const float* __restrict__ rho_raw,
-                              const float* __restrict__ alpha_raw,
-                              const float* __restrict__ rhom, int t, int n,
-                              int m, int B) {
-  const int S = n + m, M = B * S;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M) return;
-  const int b = idx / S, s = idx % S;
-  float d = 0.f;
-  for (int tile = 0; tile < ntiles; ++tile) d += partial[(size_t)tile * M + idx];
-  const float xvn = xv[idx] - (d + bh[0]);
-  xv[idx] = xvn;
-  if (s < n) {
-    const float alpha = 2.0f * sigmoidf(alpha_raw[t]);
-    const int k = b * n + s;
-    x[k] = alpha * xvn + (1.0f - alpha) * x[k];
-  } else {
-    const int k = b * m + (s - n);
-    const float rho = sigmoidf(rho_raw[t]) * rhom[k];
-    const float yk = y[k];
-    const float zt = z[k] + (xvn - yk) / rho;
-    const float zn = fminf(fmaxf(zt + yk / rho, zl[k]), zu[k]);
-    y[k] = yk + rho * (zt - zn);
-    z[k] = zn;
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -132,23 +65,25 @@ int iadmm_rollout_step(int t, const void* Q, const void* A0, const void* p,
 
   kkt::colpass<__nv_bfloat16, true>(Q, A0, xvf, S, xvf + n, S, part, rd, n, m,
                                     B, s);
-  finish_kernel<<<eblocks, 256, 0, s>>>(
+  admm::finish_kernel<<<eblocks, 256, 0, s>>>(
       1, part, rd, nch, xvf, static_cast<const float*>(x),
       static_cast<const float*>(y), static_cast<const float*>(z), pf, rr, rm,
       t, sigma, rf, n, m, B);
   kkt::colpass<__nv_bfloat16, true>(Q, A0, rf, S, rf + n, S, part, rd, n, m,
                                     B, s);
-  finish_kernel<<<eblocks, 256, 0, s>>>(2, part, rd, nch, rf, nullptr,
-                                        nullptr, nullptr, nullptr, rr, rm, t,
-                                        sigma, gf, n, m, B);
+  admm::finish_kernel<<<eblocks, 256, 0, s>>>(2, part, rd, nch, rf, nullptr,
+                                              nullptr, nullptr, nullptr, rr,
+                                              rm, t, sigma, gf, n, m, B);
   cell::launch<__nv_bfloat16, float>(xvf, gf, 1, 0, H_in, C, W, U,
                                      static_cast<const float*>(b), Wh, H_out,
                                      C, static_cast<float*>(cell_partial), M,
                                      h, s);
-  update_kernel<<<eblocks, 256, 0, s>>>(
+  float* xf = static_cast<float*>(x);
+  float* yf = static_cast<float*>(y);
+  float* zf = static_cast<float*>(z);
+  admm::update_kernel<<<eblocks, 256, 0, s>>>(
       static_cast<const float*>(cell_partial), cell::n_tiles(h),
-      static_cast<const float*>(bh), xvf, static_cast<float*>(x),
-      static_cast<float*>(y), static_cast<float*>(z),
+      static_cast<const float*>(bh), xvf, xvf, xf, xf, yf, yf, zf, zf,
       static_cast<const float*>(zl), static_cast<const float*>(zu), rr,
       static_cast<const float*>(alpha_raw), rm, t, n, m, B);
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,8 @@
-"""Problem families and their conversion to device batches."""
+"""Problem families, dataset files and conversion to device batches."""
 
 from .generators import FAMILIES, RawDataset, generate
-from .io import to_qp_batch
+from .io import (dataset_path, load_dataset, load_npz, save_npz, split_ids,
+                 to_qp_batch)
 
-__all__ = ["FAMILIES", "RawDataset", "generate", "to_qp_batch"]
+__all__ = ["FAMILIES", "RawDataset", "generate", "to_qp_batch", "save_npz",
+           "load_npz", "dataset_path", "load_dataset", "split_ids"]

@@ -91,3 +91,66 @@ def test_stage2_matches_plain(dev, refine):
                            refine=refine)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _train_inputs(dev, B=2, n=20, mi=12, me=10, h=24, K=8, seed=5):
+    from iadmm_tpu_torch.kernels.lstm_cell import CELL_KEYS
+    data = _qp(dev, B, n, mi, me)
+    p, g = _params(seed, h, K)
+    weights = tuple(p[k].to(dev) for k in CELL_KEYS + ("rho", "alpha"))
+    S = n + mi + me
+    st = tuple((0.1 * torch.randn(s, generator=g)).to(dev)
+               for s in ((B, n), (B, mi + me), (B, mi + me), (B, S),
+                         (B, S, h), (B, S, h)))
+    dd = (data.Q, data.A0, data.p, data.zl, data.zu,
+          rho_vector(1.0, data.eq_mask).float())
+    return weights, st, dd, g
+
+
+def _leaf_gap(a, b):
+    return float((a.reshape(b.shape) - b).abs().max()) / max(
+        float(b.abs().max()), 1e-6)
+
+
+@pytest.mark.parametrize("t0", [0, 2])
+def test_train_kernels_match_plain(dev, t0):
+    """Forward: losses and final state to 2e-2.  Backward on the plain
+    forward's streams: every gradient leaf to 1e-3 of its max.  End to end:
+    every leaf to 2e-2 of its max, or, for a leaf that is a cancelling sum
+    (b_h here: per-step terms of about 12 summing to about 0.3), to within
+    2x the gap the plain backward shows when fed the kernel's streams.  The
+    backward twice: bitwise equal (fixed-order sums)."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    J = 6
+    weights, st, dd, g = _train_inputs(dev)
+    kw = dict(t0=t0, J=J, sigma=1e-3, compute_dtype="bfloat16")
+    before = ttr.train_fwd_cuda.launches
+    pr, dr, final, streams = ttr.train_fwd_cuda(weights, st, dd, **kw)
+    assert ttr.train_fwd_cuda.launches == before + J
+    rpr, rdr, rfinal, rstreams = ttr.train_fwd_plain(weights, st, dd, **kw)
+    for a, b in zip((pr, dr, *final), (rpr, rdr, *rfinal)):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
+    dpr = torch.rand(pr.shape, generator=g).to(dev)
+    ddr = torch.rand(dr.shape, generator=g).to(dev)
+    # cotangents on the final state too (zero in training, where the loss
+    # does not read it), so the carries' starting values are checked
+    dfin = tuple((0.1 * torch.randn(f.shape, generator=g)).to(dev)
+                 for f in final)
+    before = ttr.train_bwd_cuda.launches
+    grads, dst = ttr.train_bwd_cuda(weights, dd, streams, dfin, dpr, ddr,
+                                    **kw)
+    assert ttr.train_bwd_cuda.launches == before + J
+    again, _ = ttr.train_bwd_cuda(weights, dd, streams, dfin, dpr, ddr, **kw)
+    same, sst = ttr.train_bwd_cuda(weights, dd, rstreams, dfin, dpr, ddr,
+                                   **kw)
+    own, _ = ttr.train_bwd_plain(weights, dd, streams, dfin, dpr, ddr, **kw)
+    ref, rst = ttr.train_bwd_plain(weights, dd, rstreams, dfin, dpr, ddr,
+                                   **kw)
+    for k, a, a2, s, o, b in zip("W U b W_h b_h rho alpha".split(), grads,
+                                 again, same, own, ref):
+        assert torch.equal(a, a2), k
+        assert _leaf_gap(s, b) <= 1e-3, k
+        gap = _leaf_gap(a, b)
+        assert gap <= 2e-2 or gap <= 2 * _leaf_gap(o, b), (k, gap)
+    for k, s, b in zip("x y z xv H C".split(), sst, rst):
+        assert _leaf_gap(s, b) <= 1e-3, f"d{k}"

@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX nor the JAX package."""
+"""The PyTorch port imports neither JAX (nor optax, orbax) nor the JAX
+package."""
 
 import ast
 import pathlib
@@ -8,7 +9,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "iadmm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "iadmm_tpu")
 PORT_FILES = sorted((ROOT / "iadmm_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -34,7 +35,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import iadmm_tpu_torch, iadmm_tpu_torch.api, "
-        "iadmm_tpu_torch.convert, iadmm_tpu_torch.kernels.rollout_kernel\n"
+        "iadmm_tpu_torch.convert, iadmm_tpu_torch.kernels.rollout_kernel, "
+        "iadmm_tpu_torch.config, iadmm_tpu_torch.train.harness, "
+        "iadmm_tpu_torch.kernels.train_rollout, iadmm_tpu_torch.cli.train\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
