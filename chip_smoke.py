@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``iadmm_tpu_torch/kernels/csrc`` (first use),
-then runs five phases at the flagship shape QP_1000_500_500 / h=800:
+then runs eight phases at the flagship shape QP_1000_500_500 / h=800:
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16)
       and on a ragged small case;
@@ -21,15 +21,17 @@ then runs five phases at the flagship shape QP_1000_500_500 / h=800:
   (f) the training kernels (forward and backward of a TBPTT chunk) against
       their plain versions at B=2: at J=6 the forward's outputs, the
       backward on the same streams and every gradient leaf end to end; at
-      J=100 relative to the plain pair's own rounding gap (the larger of
-      two permutations of the hidden units); the backward twice, bitwise
-      equal; timed at J=100;
+      J=100 the backward on the same streams, tightly, and end to end each
+      output and gradient leaf relative to that leaf's own rounding gap in
+      the plain pair (the largest under three permutations of the hidden
+      units); the backward twice, bitwise equal; timed at J=100;
   (g) training: ``harness.train`` with train_backend='fused' and the fast
       profile, 2 epochs on a generated QP_1000_500_500 dataset (16
       instances, B=2, J = outer_T = 100), then ``make_solver`` serves one
       B=8 request from the reloaded checkpoint;
   (h) one chunk update on each backend from the same params ('step' runs
-      the cell kernel): times, and the loss and gradient gap between them.
+      the cell kernel): times, and the loss and per-leaf gradient gaps
+      between them, each held to a limit.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before (d) and read
@@ -55,11 +57,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 TRAIN_DIR = os.path.join(ROOT, "results", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s.
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
-
 N_VAR, N_INEQ, N_EQ, HIDDEN, K_ITERS = 1000, 500, 500, 800, 100
 SERVE_BATCH, POLISH_STEPS = 8, 20
 SIGMA = 6e-6
@@ -68,20 +65,18 @@ MAX_POLISH_RATIO = 1e-2
 MAX_GAP_OVER_ROUNDING = 4.0
 TRAIN_BATCH, TRAIN_DATA, TRAIN_EPOCHS = 2, 16, 2
 MAX_LEAF_GAP = 2e-2   # per-leaf normalised gradient gap (JAX bf16 test)
+MAX_LEAF_GAP_J100 = 2e-3   # the same, bwd on the same streams at J=100
+                           # (<= 3.3e-4 measured on an H100)
 MAX_LOSS_GAP = 1e-3   # step vs fused chunk loss (2.1e-5 measured on an H100)
+MAX_STEP_GRAD_GAP = 0.1   # step vs fused, per leaf (<= 3.3% on an H100)
 GRAD_KEYS = ("W", "U", "b", "W_h", "b_h", "rho", "alpha")
+J100_LEAVES = ("pr", "dr", "x", "y", "z", "xv") + GRAD_KEYS
+PERMUTATIONS = (3, 4, 5)   # seeds of the hidden-unit permutations (f)
 DEV = "cuda"
 
 
 class PhaseError(RuntimeError):
     pass
-
-
-def bound_ms(nbytes, bf16_ops=0.0, f32_ops=0.0):
-    t_bytes = nbytes / HBM_BPS
-    t_ops = bf16_ops / BF16_FLOPS + f32_ops / F32_FLOPS
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by
 
 
 def cuda_ms(fn, reps=3, warmup=1):
@@ -132,6 +127,7 @@ def qp_batch(B, seed, n=N_VAR, mi=N_INEQ, me=N_EQ):
 def phase_cell(params, report):
     import torch
     from iadmm_tpu_torch.kernels import lstm_cell as lc
+    from iadmm_tpu_torch.kernels.bounds import bound_ms
     g = torch.Generator().manual_seed(11)
     for B, S, h, hc in ((SERVE_BATCH, N_VAR + N_INEQ + N_EQ, HIDDEN,
                          torch.bfloat16),
@@ -212,6 +208,7 @@ def rel_gap(outs, refs):
 def phase_rollout(params, data, report):
     import torch
     from iadmm_tpu_torch.kernels import rollout_kernel as rk
+    from iadmm_tpu_torch.kernels.bounds import bound_ms
     from iadmm_tpu_torch.scaling import scale_batch
     scaled, sc = scale_batch(data)
     # Over K_ITERS the untrained recurrence amplifies rounding, so the
@@ -273,6 +270,7 @@ def phase_rollout(params, data, report):
 def phase_stage2(params, data, sc, xyz, report):
     import torch
     from iadmm_tpu_torch.kernels import stage2_kernel as s2
+    from iadmm_tpu_torch.kernels.bounds import bound_ms
     from iadmm_tpu_torch.solvers.step import _schedules
     from iadmm_tpu_torch.types import IterState
     x, y, z = xyz
@@ -492,25 +490,17 @@ def unpermute_grads(grads, perm):
 
 def device_time_by_kernel(fn, top=12):
     """{CUDA kernel name: device ms} of one call of ``fn`` under
-    torch.profiler, largest first; the error text if the profiler cannot
-    trace the card."""
+    torch.profiler, largest first (the breakdown of PERF.md §5)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            if getattr(ev, "device_type", None) != \
-                    torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "device_time_total", 0.0)
-            if us:
-                rows.append((ev.key[:60], us / 1e3, ev.count))
-    except Exception as e:  # a measurement aid: report, do not stop the run
-        return {"error": repr(e)[:200]}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key[:60], ev.device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.device_time_total]
     rows.sort(key=lambda r: -r[1])
     return {k: dict(ms=ms, calls=c) for k, ms, c in rows[:top]}
 
@@ -519,6 +509,7 @@ def phase_train_kernels(params, data, report):
     """(f): the training kernels against their plain versions."""
     import torch
     from iadmm_tpu_torch.kernels import train_rollout as tr
+    from iadmm_tpu_torch.kernels.bounds import bound_ms
     weights, state, dd = train_inputs(params, data)
     B, n = data.p.shape
     m = data.num_constr
@@ -535,10 +526,8 @@ def phase_train_kernels(params, data, report):
 
     kernel = (tr.train_fwd_cuda, tr.train_bwd_cuda)
     plain = (tr.train_fwd_plain, tr.train_bwd_plain)
-    # J = K_CHECK: the forward outputs; the backward kernel on the plain
-    # forward's streams; every leaf end to end, or, for a leaf that is a
-    # cancelling sum, within 2x the gap the plain backward itself shows when
-    # it is fed the kernel's streams (its own sensitivity to rounding)
+    # J = K_CHECK: the forward outputs; every gradient leaf, from the
+    # backward kernel on the plain forward's streams and end to end
     J = K_CHECK
     f0, b0 = tr.train_fwd_cuda.launches, tr.train_bwd_cuda.launches
     kpr, kdr, kfin, kstr, kg, d = run(*kernel, weights, J)
@@ -554,47 +543,52 @@ def phase_train_kernels(params, data, report):
     kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
     zero = tuple(torch.zeros_like(f) for f in kfin)
     ks_g, _ = tr.train_bwd_cuda(weights, dd, pstr, zero, d, d, **kw)
-    pk_g, _ = tr.train_bwd_plain(weights, dd, kstr, zero, d, d, **kw)
     same = leaf_gaps(ks_g, pg)
     e2e = leaf_gaps(kg, pg)
-    own = leaf_gaps(pk_g, pg)
-    for k, sg, eg, og in zip(GRAD_KEYS, same, e2e, own):
-        if sg > MAX_LEAF_GAP:
-            raise PhaseError(f"train bwd on the plain streams: grad[{k}] "
-                             f"gap {sg:.3e} > {MAX_LEAF_GAP}")
-        if eg > MAX_LEAF_GAP and eg > 2.0 * og:
-            raise PhaseError(f"train: grad[{k}] gap {eg:.3e} exceeds "
-                             f"{MAX_LEAF_GAP} and 2x the plain backward's "
-                             f"own gap {og:.3e}")
+    for what, gaps in (("on the plain streams", same), ("end to end", e2e)):
+        for k, gap in zip(GRAD_KEYS, gaps):
+            if not gap <= MAX_LEAF_GAP:
+                raise PhaseError(f"train bwd {what}: grad[{k}] gap "
+                                 f"{gap:.3e} > {MAX_LEAF_GAP}")
     del kstr, pstr
     grad_abs = max(float((a.reshape(b.shape) - b).abs().max())
                    for a, b in zip(kg, pg))
-    # J = K_ITERS: relative to the plain pair's own rounding gap
+    # J = K_ITERS: each output and gradient leaf relative to that leaf's own
+    # rounding gap in the plain pair.  That gap differs from one summation
+    # order to the next (by up to 5x on the losses at J=100), so the
+    # yardstick of a leaf is its largest gap under PERMUTATIONS orders.
     J = K_ITERS
+    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
     kpr, kdr, kfin, kstr, kg, d = run(*kernel, weights, J)
-    ppr, pdr, pfin, _, pg, _ = run(*plain, weights, J)
-    # The plain pair's own rounding gap differs from one summation order
-    # to the next by up to 7x at J=100 (0.055 and 0.40 for two
-    # permutations), so the yardstick is the larger of two.
+    ppr, pdr, pfin, pstr, pg, _ = run(*plain, weights, J)
+    zero = tuple(torch.zeros_like(f) for f in kfin)
+    # On the same streams the reverse sweep stays tight over J=100 steps:
+    # no forward runs in between to amplify rounding.
+    ks_g, _ = tr.train_bwd_cuda(weights, dd, pstr, zero, d, d, **kw)
+    same_j = leaf_gaps(ks_g, pg)
+    del pstr, ks_g
+    for k, gap in zip(GRAD_KEYS, same_j):
+        if not gap <= MAX_LEAF_GAP_J100:
+            raise PhaseError(f"train bwd on the plain streams, J={J}: "
+                             f"grad[{k}] gap {gap:.3e} > {MAX_LEAF_GAP_J100}")
     ref_out = (ppr, pdr, *pfin[:4], *pg)
-    gap_k = max(leaf_gaps((kpr, kdr, *kfin[:4], *kg), ref_out))
-    gap_p = 0.0
-    for seed in (3, 4):
+    gap_k = leaf_gaps((kpr, kdr, *kfin[:4], *kg), ref_out)
+    gap_p = [0.0] * len(gap_k)
+    for seed in PERMUTATIONS:
         perm = torch.randperm(HIDDEN,
                               generator=torch.Generator().manual_seed(seed))
         pw = tuple(permute_hidden(params, perm.to(DEV))[k]
                    for k in GRAD_KEYS)
         qpr, qdr, qfin, _, qg, _ = run(*plain, pw, J)
         qg = unpermute_grads(qg, perm.to(DEV))
-        gap_p = max(gap_p, max(leaf_gaps((qpr, qdr, *qfin[:4], *qg),
-                                         ref_out)))
+        gap_p = [max(a, b) for a, b in zip(
+            gap_p, leaf_gaps((qpr, qdr, *qfin[:4], *qg), ref_out))]
         del qfin, qg
-    if gap_k > MAX_GAP_OVER_ROUNDING * gap_p:
-        raise PhaseError(f"train: gap {gap_k:.3e} after {J} steps exceeds "
-                         f"{MAX_GAP_OVER_ROUNDING}x the plain pair's own "
-                         f"rounding gap {gap_p:.3e}")
-    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
-    zero = tuple(torch.zeros_like(f) for f in kfin)
+    for k, gk, gp in zip(J100_LEAVES, gap_k, gap_p):
+        if not gk <= MAX_GAP_OVER_ROUNDING * gp:
+            raise PhaseError(f"train: {k} gap {gk:.3e} after {J} steps "
+                             f"exceeds {MAX_GAP_OVER_ROUNDING}x the plain "
+                             f"pair's own rounding gap {gp:.3e}")
     again, _ = tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw)
     if not all(torch.equal(a, b) for a, b in zip(kg, again)):
         raise PhaseError("train bwd: two runs gave different gradients")
@@ -637,16 +631,18 @@ def phase_train_kernels(params, data, report):
                max_rel_err_fwd=max(e[1] for e in errs),
                max_abs_err_grad=grad_abs,
                tol=("fwd: 1e-2·max|ref| + 2e-2|ref| per output at J=6; "
-                    "grads: per-leaf max|Δ|/max|ref| <= 2e-2 (bwd on the "
-                    "plain streams, and end to end unless the plain bwd "
-                    "fed the kernel's streams shows half as much); J=100: "
-                    "max gap <= 4x the larger of the plain pair's gaps under "
-                    "two hidden-unit permutations"),
+                    "grads at J=6: per-leaf max|Δ|/max|ref| <= 2e-2, bwd on "
+                    "the plain streams and end to end; J=100: bwd on the "
+                    "plain streams per leaf <= 2e-3, and per leaf "
+                    "(losses, final x, y, z, xv, each gradient) gap <= 4x "
+                    "that leaf's largest plain-pair gap under "
+                    f"{len(PERMUTATIONS)} hidden-unit permutations"),
                grad_gap_same_streams=dict(zip(GRAD_KEYS, same)),
                grad_gap_end_to_end=dict(zip(GRAD_KEYS, e2e)),
-               grad_gap_plain_on_kernel_streams=dict(zip(GRAD_KEYS, own)),
-               rel_gap_at_J100=gap_k,
-               plain_vs_permuted_plain_rel_gap_at_J100=gap_p,
+               grad_gap_same_streams_at_J100=dict(zip(GRAD_KEYS, same_j)),
+               rel_gap_at_J100=dict(zip(J100_LEAVES, gap_k)),
+               plain_vs_permuted_plain_rel_gap_at_J100=dict(
+                   zip(J100_LEAVES, gap_p)),
                bitwise_repeat=True,
                fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
                bwd_plain_ms=bwd_plain_ms, fwd_bound_ms=fb, fwd_bound_by=fby,
@@ -659,41 +655,6 @@ def phase_train_kernels(params, data, report):
                bwd_device_ms_by_kernel=breakdown)
     say("f train kernels", **row)
     report["train_kernels"] = row
-
-
-def unported_bounds():
-    """Bounds of the TPU kernels not ported yet, from their shapes: the
-    segment pair at the flagship chunk (B=2, J=100, S=2000, h=800) and the
-    BSR matvec at scripts/bench_sparse.py's default (B=8, n=1000, banded
-    half-widths 8..256, (8, 128) bf16 tiles, one matvec)."""
-    import numpy as np
-    B, J, n, m, h = TRAIN_BATCH, K_ITERS, N_VAR, N_INEQ + N_EQ, HIDDEN
-    M = B * (n + m)
-    gemm = 2.0 * M * h * 4 * h
-    mv = 2.0 * B * (n * n + 2 * m * n)
-    data = B * (n * n + m * n) * 2 + (2 * 4 * h + h * 4 * h + h) * 2
-    ckpt = M * h * 8   # the chunk's start H, C (float32), read once
-    out = {"fwd_seg (train_rollout.py:147)": bound_ms(
-        data + ckpt, bf16_ops=J * (gemm + 3 * mv),
-        f32_ops=J * M * (2.0 * 2 * 4 * h + 20.0 * h)),
-        "bwd_seg (train_rollout.py:664)": bound_ms(
-        data + ckpt + (h * 4 * h + 2 * 4 * h) * 4,
-        bf16_ops=J * (4 * gemm + 8 * mv),
-        f32_ops=J * M * (6.0 * 2 * 4 * h + 60.0 * h))}
-    nb, tm, tn = 1000, 8, 128
-    idx = np.arange(nb)
-    for w in (8, 16, 64, 128, 256):
-        band = np.abs(idx[:, None] - idx[None, :]) <= w
-        rows, cols = -(-nb // tm), -(-nb // tn)
-        pad = np.zeros((rows * tm, cols * tn), bool)
-        pad[:nb, :nb] = band
-        tiles = int(pad.reshape(rows, tm, cols, tn).any(axis=(1, 3)).sum())
-        out[f"bsr_matvec w={w} ({tiles} tiles/instance)"] = bound_ms(
-            8 * (tiles * (tm * tn * 2 + 4) + nb * 8),
-            bf16_ops=8 * 2.0 * tiles * tm * tn)
-    rows = {k: dict(bound_ms=v[0], bound_by=v[1]) for k, v in out.items()}
-    say("bounds of the kernels not ported", **rows)
-    return rows
 
 
 def train_counters():
@@ -835,16 +796,19 @@ def phase_step_vs_fused(params, data, report):
                / abs(rows["fused"]["loss"]),
                grad_gap_step_vs_fused=dict(zip(GRAD_KEYS, gaps)),
                step_cell_launches_per_update=rows["step"]["cell_launches"],
-               loss_gate=MAX_LOSS_GAP,
-               note=("gradients not gated: the step route's loss uses "
-                     "float32 residual matvecs and float32 H/C carries "
-                     "through the cell, the fused route bf16 residual "
-                     "matvecs and a bf16 H stream, so b and b_h (cancelling "
-                     "sums) differ by about 3%"))
+               loss_gate=MAX_LOSS_GAP, grad_gate=MAX_STEP_GRAD_GAP,
+               note=("the step route's loss uses float32 residual matvecs "
+                     "and float32 H/C carries through the cell, the fused "
+                     "route bf16 residual matvecs and a bf16 H stream, so "
+                     "b and b_h (cancelling sums) differ by about 3%"))
     say("h step vs fused", **row)
     if not row["loss_rel_gap"] <= MAX_LOSS_GAP:
         raise PhaseError(f"h: the two backends' chunk losses differ by "
                          f"{row['loss_rel_gap']:.3e} > {MAX_LOSS_GAP}")
+    for k, gap in zip(GRAD_KEYS, gaps):
+        if not gap <= MAX_STEP_GRAD_GAP:
+            raise PhaseError(f"h: grad[{k}] differs between the backends by "
+                             f"{gap:.3e} > {MAX_STEP_GRAD_GAP}")
     report["step_vs_fused"] = row
 
 
@@ -912,7 +876,6 @@ def main() -> int:
     cell_all += g["cell"]
     say("training path launches", **g)
     phase_step_vs_fused(params, scaled_t, report)
-    report["unported_bounds"] = unported_bounds()
 
     def entry(name, src, replaces, key, launches):
         r = report[key]

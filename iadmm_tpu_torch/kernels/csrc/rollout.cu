@@ -6,7 +6,7 @@
 // Q and 1 MB of A0 per instance (bf16, n = m = 1000) do not fit in the
 // 227 KB of shared memory of an SM, and a grid of B CTAs would use 8 of 132
 // SMs.  Here the host loops over K and each iteration is six launches that
-// spread every instance over many CTAs:
+// spread every instance over many CTAs (admm::iteration, admm_step.cuh):
 //   1. colpass(xv)        Q·u + A0ᵀ·ν partials and A0·u   (kkt_matvec.cuh)
 //   2. finish(pass 1)     r = Ã·xv − b̃                   (admm_step.cuh)
 //   3. colpass(r)
@@ -28,7 +28,6 @@
 // z = min(max(z_t + y/ρ, zl), zu) with z-relaxation off (:145-154).
 
 #include "admm_step.cuh"
-#include "cell_gemm.cuh"
 
 using namespace iadmm;
 
@@ -50,42 +49,30 @@ int iadmm_rollout_step(int t, const void* Q, const void* A0, const void* p,
                        void* H_out, void* C, void* mv_partial, void* rowdot,
                        void* cell_partial, int B, int n, int m, int h,
                        float sigma, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int S = n + m, M = B * S;
-  const int nch = kkt::n_chunks(n, m);
-  const int eblocks = (M + 255) / 256;
+  const admm::Problem P{Q,
+                        A0,
+                        static_cast<const float*>(p),
+                        static_cast<const float*>(zl),
+                        static_cast<const float*>(zu),
+                        static_cast<const float*>(rhom),
+                        static_cast<const float*>(rho_raw),
+                        static_cast<const float*>(alpha_raw),
+                        B,
+                        n,
+                        m,
+                        sigma};
+  const admm::Weights w{W, U, static_cast<const float*>(b), Wh,
+                        static_cast<const float*>(bh), h};
+  const admm::KktScratch ks{static_cast<float*>(mv_partial),
+                            static_cast<float*>(rowdot)};
   float* xvf = static_cast<float*>(xv);
-  float* rf = static_cast<float*>(r);
-  float* gf = static_cast<float*>(g);
-  float* part = static_cast<float*>(mv_partial);
-  float* rd = static_cast<float*>(rowdot);
-  const float* pf = static_cast<const float*>(p);
-  const float* rr = static_cast<const float*>(rho_raw);
-  const float* rm = static_cast<const float*>(rhom);
-
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, xvf, S, xvf + n, S, part, rd, n, m,
-                                    B, s);
-  admm::finish_kernel<<<eblocks, 256, 0, s>>>(
-      1, part, rd, nch, xvf, static_cast<const float*>(x),
-      static_cast<const float*>(y), static_cast<const float*>(z), pf, rr, rm,
-      t, sigma, rf, n, m, B);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, rf, S, rf + n, S, part, rd, n, m,
-                                    B, s);
-  admm::finish_kernel<<<eblocks, 256, 0, s>>>(2, part, rd, nch, rf, nullptr,
-                                              nullptr, nullptr, nullptr, rr,
-                                              rm, t, sigma, gf, n, m, B);
-  cell::launch<__nv_bfloat16, float>(xvf, gf, 1, 0, H_in, C, W, U,
-                                     static_cast<const float*>(b), Wh, H_out,
-                                     C, static_cast<float*>(cell_partial), M,
-                                     h, s);
   float* xf = static_cast<float*>(x);
   float* yf = static_cast<float*>(y);
   float* zf = static_cast<float*>(z);
-  admm::update_kernel<<<eblocks, 256, 0, s>>>(
-      static_cast<const float*>(cell_partial), cell::n_tiles(h),
-      static_cast<const float*>(bh), xvf, xvf, xf, xf, yf, yf, zf, zf,
-      static_cast<const float*>(zl), static_cast<const float*>(zu), rr,
-      static_cast<const float*>(alpha_raw), rm, t, n, m, B);
+  admm::iteration(P, w, t, xvf, xf, yf, zf, H_in, C, xvf, xf, yf, zf, H_out,
+                  C, nullptr, static_cast<float*>(r), static_cast<float*>(g),
+                  static_cast<float*>(cell_partial), ks,
+                  static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

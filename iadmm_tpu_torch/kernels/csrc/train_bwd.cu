@@ -8,7 +8,7 @@
 // the instances in VMEM.  Here the host calls this entry point once per
 // reverse step k; it reads the streams of train_fwd.cu (slots k and k+1) and
 // launches, in order:
-//   vector head   colpass/finish twice (r = Ã·xv − b̃, g = Ã·r, recomputed),
+//   vector head   admm::features (r = Ã·xv − b̃, g = Ã·r, recomputed),
 //                 colpass over (x', y') and the loss adjoint (head_kernel),
 //                 colpass over (dv2, dv1), the ADMM-update adjoint
 //                 (adjoint_kernel) and −Σ dxv for db_h (sum_kernel)
@@ -22,7 +22,7 @@
 //   dU += H_kᵀ·dpre                                 (gemm_bf16.cuh)
 //   reductions    the column partials into db, dW, dW_h; the row partials
 //                 into dxv and dg
-//   vector tail   colpass/finish twice (dr = Ã·dg, [du; dν] = Ã·dr), the
+//   vector tail   admm::kkt_apply twice (dr = Ã·dg, [du; dν] = Ã·dr), the
 //                 dx/dy/dz/dρ updates (tail_kernel), and dρ_t, dα_t at slot
 //                 k with the db_h step (sched_kernel)
 //
@@ -396,14 +396,25 @@ int iadmm_train_bwd_step(
   const float* x_n = x_k + B * n;
   const float* y_n = y_k + B * m;
   const float* z_n = z_k + B * m;
-  const float* pf = static_cast<const float*>(p);
-  const float* rr = static_cast<const float*>(rho_raw);
-  const float* ar = static_cast<const float*>(alpha_raw);
-  const float* rm = static_cast<const float*>(rhom);
-  const float* zlf = static_cast<const float*>(zl);
-  const float* zuf = static_cast<const float*>(zu);
-  float* part = static_cast<float*>(mv_partial);
-  float* rd = static_cast<float*>(rowdot);
+  const admm::Problem P{Q,
+                        A0,
+                        static_cast<const float*>(p),
+                        static_cast<const float*>(zl),
+                        static_cast<const float*>(zu),
+                        static_cast<const float*>(rhom),
+                        static_cast<const float*>(rho_raw),
+                        static_cast<const float*>(alpha_raw),
+                        B,
+                        n,
+                        m,
+                        sigma};
+  const admm::KktScratch ks{static_cast<float*>(mv_partial),
+                            static_cast<float*>(rowdot)};
+  const float* rr = P.rho_raw;
+  const float* ar = P.alpha_raw;
+  const float* rm = P.rhom;
+  float* part = ks.partial;
+  float* rd = ks.rowdot;
   float* rf = static_cast<float*>(r);
   float* gf = static_cast<float*>(g);
   float* dvf = static_cast<float*>(dv);
@@ -420,27 +431,18 @@ int iadmm_train_bwd_step(
   auto* dpreb = static_cast<__nv_bfloat16*>(dpre);
 
   // vector head
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, xv_k, S, xv_k + n, S, part, rd, n,
-                                    m, B, s);
-  admm::finish_kernel<<<eb, 256, 0, s>>>(1, part, rd, nch, xv_k, x_k, y_k,
-                                         z_k, pf, rr, rm, t, sigma, rf, n, m,
-                                         B);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, rf, S, rf + n, S, part, rd, n, m,
-                                    B, s);
-  admm::finish_kernel<<<eb, 256, 0, s>>>(2, part, rd, nch, rf, nullptr,
-                                         nullptr, nullptr, nullptr, rr, rm, t,
-                                         sigma, gf, n, m, B);
+  admm::features(P, t, xv_k, x_k, y_k, z_k, rf, gf, ks, s);
   kkt::colpass<__nv_bfloat16, true>(Q, A0, x_n, n, y_n, m, part, rd, n, m, B,
                                     s);
-  head_kernel<<<B, 256, 0, s>>>(part, rd, nch, pf, z_n,
+  head_kernel<<<B, 256, 0, s>>>(part, rd, nch, P.p, z_n,
                                 static_cast<const float*>(dpr),
                                 static_cast<const float*>(ddr), k, J, dvf, n,
                                 m);
   kkt::colpass<__nv_bfloat16, true>(Q, A0, dvf, S, dvf + n, S, part, rd, n, m,
                                     B, s);
   adjoint_kernel<<<eb, 256, 0, s>>>(part, rd, nch, dvf, dxf, dyf, dzf, dxvf,
-                                    x_k, y_k, z_k, z_n, xv_n, zlf, zuf, rr, ar,
-                                    rm, t, drvf, dalf, n, m, B);
+                                    x_k, y_k, z_k, z_n, xv_n, P.zl, P.zu, rr,
+                                    ar, rm, t, drvf, dalf, n, m, B);
   sum_kernel<<<1, 1024, 0, s>>>(dxvf, M, -1.0f, scalf);
 
   // cell adjoint and the two weight-side GEMMs
@@ -469,16 +471,8 @@ int iadmm_train_bwd_step(
                                         dxvf, dgf, M);
 
   // vector tail
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, dgf, S, dgf + n, S, part, rd, n, m,
-                                    B, s);
-  admm::finish_kernel<<<eb, 256, 0, s>>>(2, part, rd, nch, dgf, nullptr,
-                                         nullptr, nullptr, nullptr, rr, rm, t,
-                                         sigma, drf, n, m, B);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, drf, S, drf + n, S, part, rd, n, m,
-                                    B, s);
-  admm::finish_kernel<<<eb, 256, 0, s>>>(2, part, rd, nch, drf, nullptr,
-                                         nullptr, nullptr, nullptr, rr, rm, t,
-                                         sigma, duf, n, m, B);
+  admm::kkt_apply(P, t, dgf, drf, ks, s);
+  admm::kkt_apply(P, t, drf, duf, ks, s);
   tail_kernel<<<eb, 256, 0, s>>>(drf, duf, dgf, rf, xv_k, y_k, rr, rm, t,
                                  sigma, dxf, dyf, dzf, dxvf, drvf, n, m, B);
   sched_kernel<<<1, 1024, 0, s>>>(drvf, rm, dalf, scalf, rr, ar, t, k,

@@ -7,9 +7,10 @@
 // one instance per grid step with Q, A0 and the recurrent state in VMEM and
 // DMAs every pre-step state to HBM.  As in rollout.cu, the host loops here:
 // one call per step k of the chunk (schedule index t = t0 + k), launching
-//   1-4. colpass/finish twice    r = Ã·xv − b̃, g = Ã·r   (admm_step.cuh)
-//   5.   cell GEMM               gates, C', H', delta partials
-//   6.   update                  xv, x, y, z of step k+1
+//   1-6. admm::iteration         the rollout's six launches, from slot k to
+//                                slot k+1 (admm_step.cuh): r = Ã·xv − b̃,
+//                                g = Ã·r, the cell GEMM (gates, C', H',
+//                                delta partials), the xv, x, y, z update
 //   7.   colpass(x', y')         A0·x', Q·x' + A0ᵀ·y'
 //   8.   loss                    pr[b,k] = ‖A0x' − z'‖, dr[b,k] = ‖Qx' + p + A0ᵀy'‖
 //
@@ -31,7 +32,6 @@
 // stream writes (0.57 ms at 3.35 TB/s): operations.
 
 #include "admm_step.cuh"
-#include "cell_gemm.cuh"
 
 namespace {
 
@@ -86,53 +86,44 @@ int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
                          void* cell_partial, int B, int n, int m, int h,
                          int J, float sigma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int S = n + m, M = B * S;
-  const int nch = kkt::n_chunks(n, m);
-  const int eb = admm::eblocks(M);
+  const int M = B * (n + m);
   const size_t slab = (size_t)M * h;
-  const __nv_bfloat16* H_k = static_cast<const __nv_bfloat16*>(hs) + k * slab;
-  __nv_bfloat16* H_n = static_cast<__nv_bfloat16*>(hs) + (k + 1) * slab;
-  const float* C_k = static_cast<const float*>(cs) + k * slab;
-  float* C_n = static_cast<float*>(cs) + (k + 1) * slab;
+  const admm::Problem P{Q,
+                        A0,
+                        static_cast<const float*>(p),
+                        static_cast<const float*>(zl),
+                        static_cast<const float*>(zu),
+                        static_cast<const float*>(rhom),
+                        static_cast<const float*>(rho_raw),
+                        static_cast<const float*>(alpha_raw),
+                        B,
+                        n,
+                        m,
+                        sigma};
+  const admm::Weights w{W, U, static_cast<const float*>(b), Wh,
+                        static_cast<const float*>(bh), h};
+  const admm::KktScratch ks{static_cast<float*>(mv_partial),
+                            static_cast<float*>(rowdot)};
   float* xv_k = static_cast<float*>(xvs) + (size_t)k * M;
   float* x_k = static_cast<float*>(xs) + (size_t)k * B * n;
   float* y_k = static_cast<float*>(ys) + (size_t)k * B * m;
   float* z_k = static_cast<float*>(zs) + (size_t)k * B * m;
-  float* xv_n = xv_k + M;
   float* x_n = x_k + B * n;
   float* y_n = y_k + B * m;
   float* z_n = z_k + B * m;
-  float* rf = static_cast<float*>(r);
-  float* gf = static_cast<float*>(g);
-  float* part = static_cast<float*>(mv_partial);
-  float* rd = static_cast<float*>(rowdot);
-  const float* pf = static_cast<const float*>(p);
-  const float* rr = static_cast<const float*>(rho_raw);
-  const float* rm = static_cast<const float*>(rhom);
 
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, xv_k, S, xv_k + n, S, part, rd, n,
-                                    m, B, s);
-  admm::finish_kernel<<<eb, 256, 0, s>>>(1, part, rd, nch, xv_k, x_k, y_k,
-                                         z_k, pf, rr, rm, t, sigma, rf, n, m,
-                                         B);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, rf, S, rf + n, S, part, rd, n, m,
-                                    B, s);
-  admm::finish_kernel<<<eb, 256, 0, s>>>(2, part, rd, nch, rf, nullptr,
-                                         nullptr, nullptr, nullptr, rr, rm, t,
-                                         sigma, gf, n, m, B);
-  cell::launch<__nv_bfloat16, float>(
-      xv_k, gf, 1, 0, H_k, C_k, W, U, static_cast<const float*>(b), Wh, H_n,
-      C_n, static_cast<float*>(cell_partial), M, h, s,
-      static_cast<float*>(H_final));
-  admm::update_kernel<<<eb, 256, 0, s>>>(
-      static_cast<const float*>(cell_partial), cell::n_tiles(h),
-      static_cast<const float*>(bh), xv_k, xv_n, x_k, x_n, y_k, y_n, z_k, z_n,
-      static_cast<const float*>(zl), static_cast<const float*>(zu), rr,
-      static_cast<const float*>(alpha_raw), rm, t, n, m, B);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, x_n, n, y_n, m, part, rd, n, m, B,
-                                    s);
-  loss_kernel<<<B, 256, 0, s>>>(part, rd, nch, pf, z_n,
-                                static_cast<float*>(pr),
+  admm::iteration(P, w, t, xv_k, x_k, y_k, z_k,
+                  static_cast<const __nv_bfloat16*>(hs) + k * slab,
+                  static_cast<const float*>(cs) + k * slab, xv_k + M, x_n,
+                  y_n, z_n, static_cast<__nv_bfloat16*>(hs) + (k + 1) * slab,
+                  static_cast<float*>(cs) + (k + 1) * slab,
+                  static_cast<float*>(H_final), static_cast<float*>(r),
+                  static_cast<float*>(g), static_cast<float*>(cell_partial),
+                  ks, s);
+  kkt::colpass<__nv_bfloat16, true>(Q, A0, x_n, n, y_n, m, ks.partial,
+                                    ks.rowdot, n, m, B, s);
+  loss_kernel<<<B, 256, 0, s>>>(ks.partial, ks.rowdot, kkt::n_chunks(n, m),
+                                P.p, z_n, static_cast<float*>(pr),
                                 static_cast<float*>(dr), k, J, n, m);
   return static_cast<int>(cudaGetLastError());
 }
