@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``iadmm_tpu_torch/kernels/csrc`` (first use),
-then runs eight phases at the flagship shape QP_1000_500_500 / h=800:
+then runs eight phases at the flagship shape QP_1000_500_500 / h=800 and
+two at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50):
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16)
       and on a ragged small case;
@@ -31,17 +32,35 @@ then runs eight phases at the flagship shape QP_1000_500_500 / h=800:
       B=8 request from the reloaded checkpoint;
   (h) one chunk update on each backend from the same params ('step' runs
       the cell kernel): times, and the loss and per-leaf gradient gaps
-      between them, each held to a limit.
+      between them, each held to a limit;
+  (i) the BSR matvec kernel against its plain version on the scaled
+      Sparse_QP_Large operands Q, A0, A0ᵀ at B=2 and B=10, bf16 and
+      float32 (8, 128) tiles, and on a ragged (128, 128)-tile case: forward
+      and backward to 1e-5 (bf16) or 1e-6 (float32) of max|ref|, two calls
+      bitwise equal; its device time (launches queued behind a sleep, so
+      the Python wrapper's cost is hidden) beside its bound, the plain
+      version and ``torch.bmm`` of the densified bf16 matrix;
+  (j) ``harness.train`` on the BSR route (22 generated instances: 10
+      train, 2 val, 10 test; 2 epochs at B=2, J = outer_T = 50,
+      train_backend='step'), then ``run_test`` of the reloaded checkpoint
+      on the BSR and the dense route at B=10 with Stage II, the traces held
+      to the dense route at the BSR route's cell precision (the first 6
+      steps to 1e-3; K=50 to 4x the BSR route's own gap under a
+      hidden-unit permutation) and to the dense profile, whose cell is the
+      bf16-gate cell kernel (the first 6 steps to 1e-2); a profiled chunk
+      update gives the device's busy share.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before (d) and read
-just after (e) (serving), and zeroed just before (g) and read just after it
-(training).  The second-to-last line is the per-kernel JSON, the last line
-``{"ok": true, "device": {...}}``.  Weights are random from a seed (no
-trained checkpoint is in the repository).  Exits non-zero without a CUDA
-device.  Longer output (ptxas reports) goes to ``chiprun_out/chip_smoke/``;
-the training run's checkpoints go to ``results/chip_smoke/`` and are
-removed at the end.
+just after (e) (serving), zeroed just before (g) and read just after it
+(training), and zeroed just before (j)'s training and read after its
+``run_test`` on the two routes (the sparse path).  The second-to-last line
+is the per-kernel JSON, the last line ``{"ok": true, "device": {...}}``.
+Weights are random from a seed (no trained checkpoint is in the
+repository).  Exits non-zero without a CUDA device.  Longer output (ptxas
+reports, ``report.json``) goes to ``chiprun_out/chip_smoke/``; the training
+runs' checkpoints go to ``results/chip_smoke/`` and
+``results/chip_smoke_sparse/`` and are removed at the end.
 """
 
 from __future__ import annotations
@@ -56,6 +75,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 TRAIN_DIR = os.path.join(ROOT, "results", "chip_smoke")
+SPARSE_DIR = os.path.join(ROOT, "results", "chip_smoke_sparse")
 
 N_VAR, N_INEQ, N_EQ, HIDDEN, K_ITERS = 1000, 500, 500, 800, 100
 SERVE_BATCH, POLISH_STEPS = 8, 20
@@ -72,6 +92,14 @@ MAX_STEP_GRAD_GAP = 0.1   # step vs fused, per leaf (<= 3.3% on an H100)
 GRAD_KEYS = ("W", "U", "b", "W_h", "b_h", "rho", "alpha")
 J100_LEAVES = ("pr", "dr", "x", "y", "z", "xv") + GRAD_KEYS
 PERMUTATIONS = (3, 4, 5)   # seeds of the hidden-unit permutations (f)
+# Sparse_QP_Large (scripts/run_workload.py): banded n=4096, 1024 box rows
+SP_N, SP_MI, SP_H, SP_K = 4096, 1024, 128, 50
+SP_TRAIN_B, SP_TEST_B, SP_DATA = 2, 10, 22   # 10 train, 2 val, 10 test
+SP_TILE = (8, 128)
+BSR_TOL_BF16, BSR_TOL_F32 = 1e-5, 1e-6   # of max|ref|, kernel vs plain
+ROUTE_RTOL_6 = 1e-3     # BSR vs dense route, first K_CHECK steps
+PROFILE_RTOL_6 = 1e-2   # BSR vs dense profile (bf16-gate cell kernel)
+ROUTE_FLOOR_K = 1e-5    # float32 rounding floor of the K=50 route gap
 DEV = "cuda"
 
 
@@ -91,6 +119,35 @@ def cuda_ms(fn, reps=3, warmup=1):
         fn()
     e.record()
     e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def queued_ms(fn, reps=50, sleep_ms=50.0):
+    """Device ms per call of ``fn`` without its host launch cost: a sleep
+    kernel holds the stream while the host queues ``reps`` calls behind
+    it, so they run back to back on the device.  Raises if the host took
+    longer to queue them than the sleep lasted."""
+    import torch
+    fn()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    torch.cuda._sleep(1_000_000)
+    e.record()
+    e.synchronize()
+    cycles = int(1_000_000 * sleep_ms / s.elapsed_time(e))
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    e.synchronize()
+    if host_ms >= sleep_ms:
+        raise PhaseError(f"queued_ms: queuing took {host_ms:.2f} ms, longer "
+                         f"than the {sleep_ms} ms sleep")
     return s.elapsed_time(e) / reps
 
 
@@ -488,21 +545,28 @@ def unpermute_grads(grads, perm):
             dalpha)
 
 
-def device_time_by_kernel(fn, top=12):
+def device_time_by_kernel(fn, top=12, total=False):
     """{CUDA kernel name: device ms} of one call of ``fn`` under
-    torch.profiler, largest first (the breakdown of PERF.md §5)."""
+    torch.profiler, largest first (the breakdown of PERF.md §5); with
+    ``total``, also the device ms summed over every kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(ev.key[:60], ev.device_time_total / 1e3, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.device_time_total]
-    rows.sort(key=lambda r: -r[1])
-    return {k: dict(ms=ms, calls=c) for k, ms, c in rows[:top]}
+    agg = {}   # names cut to 60 characters can collide: sum them
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.device_time_total):
+            row = agg.setdefault(ev.key[:60], dict(ms=0.0, calls=0))
+            row["ms"] += ev.device_time_total / 1e3
+            row["calls"] += ev.count
+    rows = sorted(agg.items(), key=lambda kv: -kv[1]["ms"])
+    out = dict(rows[:top])
+    if total:
+        return out, sum(r["ms"] for r in agg.values())
+    return out
 
 
 def phase_train_kernels(params, data, report):
@@ -812,6 +876,321 @@ def phase_step_vs_fused(params, data, report):
     report["step_vs_fused"] = row
 
 
+def sparse_dataset():
+    """The Sparse_QP_Large dataset of (i) and (j), generated on the host
+    (the port's numpy generators) from a fresh seed."""
+    from iadmm_tpu_torch.problems import generate
+    t0 = time.perf_counter()
+    ds = generate("Sparse_QP", num_var=SP_N, num_ineq=SP_MI,
+                  data_size=SP_DATA, seed=23)
+    gen_s = time.perf_counter() - t0
+    say("sparse dataset", family="Sparse_QP", n=SP_N, m=SP_MI,
+        instances=SP_DATA, host_generation_s=gen_s)
+    return ds, gen_s
+
+
+def bsr_case(name, M, MT, dense, B, m, n, tol, timed, rows):
+    """The BSR kernel against its plain version on one operand: forward,
+    backward through ``bsr_matvec_ad``, a bitwise repeat and, if ``timed``,
+    times beside the bound and the dense ``torch.bmm`` yardstick."""
+    import torch
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    from iadmm_tpu_torch.kernels.bounds import bsr_matvec as bsr_bound, \
+        stored_tiles
+    g = torch.Generator().manual_seed(B * 7 + m)
+    v = torch.randn((B, n), generator=g).to(DEV)
+    w = torch.randn((B, m), generator=g).to(DEV)
+    before = tsm.bsr_matvec.launches
+    out = tsm.bsr_matvec(M, v)
+    torch.cuda.synchronize()
+    if tsm.bsr_matvec.launches != before + 1:
+        raise PhaseError(f"{name}: the wrapper did not launch the kernel")
+    ref = tsm.bsr_matvec_plain(M, v)
+    scale = float(ref.abs().max())
+    err = compare(f"{name} forward", out, ref, tol * scale, 0.0)
+    if not torch.equal(tsm.bsr_matvec(M, v), out):
+        raise PhaseError(f"{name}: two calls gave different outputs")
+    vg = v.clone().requires_grad_(True)
+    (tsm.bsr_matvec_ad(M, MT, vg) * w).sum().backward()
+    gref = tsm.bsr_matvec_plain(MT, w)
+    gerr = compare(f"{name} backward", vg.grad, gref,
+                   tol * float(gref.abs().max()), 0.0)
+    TM, TN = M.tile
+    row = dict(case=name, B=B, m=m, n=n, tile=[TM, TN],
+               dtype=str(M.vals.dtype).replace("torch.", ""),
+               K=int(M.cols.shape[2]), occupancy=M.occupancy,
+               max_abs_err=err[0], max_rel_err=err[1],
+               bwd_max_abs_err=gerr[0], bwd_max_rel_err=gerr[1])
+    if timed:
+        tiles = stored_tiles(M.vals)
+        b_ms, b_by = bsr_bound(tiles, B, m, n, TM, TN,
+                               M.vals.element_size())
+        vb = v.to(torch.bfloat16)[..., None]
+        # device times (launches queued behind a sleep); paced_ms is the
+        # kernel as Python launches it back to back, wrapper included
+        row.update(
+            stored_tiles=tiles,
+            kernel_ms=queued_ms(lambda: tsm.bsr_matvec(M, v)),
+            paced_ms=cuda_ms(lambda: tsm.bsr_matvec(M, v), reps=50,
+                             warmup=5),
+            plain_ms=queued_ms(lambda: tsm.bsr_matvec_plain(M, v), reps=20),
+            library_ms=queued_ms(lambda: torch.bmm(dense, vb)),
+            bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    say("i bsr", **row)
+    return row
+
+
+def phase_bsr(ds, report):
+    """(i): the BSR kernel against its plain version on the scaled
+    Sparse_QP_Large operands (Q, A0, A0ᵀ) at B=2 and B=10, bf16 and
+    float32 tiles, and on a ragged (128, 128)-tile case."""
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.kernels.sparse_matvec import bsr_from_dense, \
+        bsr_pair_from_dense
+    from iadmm_tpu_torch.problems import to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    rows = []
+    tol = {torch.bfloat16: BSR_TOL_BF16, torch.float32: BSR_TOL_F32}
+    for B in (SP_TRAIN_B, SP_TEST_B):
+        scaled, _ = scale_batch(to_qp_batch(ds, np.arange(B), device=DEV))
+        Qd, Ad = scaled.Q, scaled.A0
+        dense = dict(Q=Qd.to(torch.bfloat16), A0=Ad.to(torch.bfloat16),
+                     A0T=Ad.transpose(1, 2).contiguous().to(torch.bfloat16))
+        for dt in (torch.bfloat16, torch.float32):
+            Q = bsr_from_dense(Qd, SP_TILE, dt, device=DEV)
+            A, AT = bsr_pair_from_dense(Ad, SP_TILE, dt, device=DEV)
+            for nm, M, MT in (("Q", Q, Q), ("A0", A, AT), ("A0T", AT, A)):
+                m, n = M.shape
+                bsr_case(f"{nm} B={B}", M, MT, dense[nm], B, m, n, tol[dt],
+                         True, rows)
+            del Q, A, AT
+        del scaled, Qd, Ad, dense
+    g = torch.Generator().manual_seed(31)
+    Mr = torch.randn((2, 1000, 1500), generator=g)
+    band = (torch.arange(1000)[:, None] * 3 // 2
+            - torch.arange(1500)[None, :]).abs() <= 40
+    Mr = Mr * band
+    for dt in (torch.bfloat16, torch.float32):
+        M, MT = bsr_pair_from_dense(Mr.numpy(), (128, 128), dt, device=DEV)
+        bsr_case("ragged 1000x1500 (128,128)", M, MT, None, 2, 1000, 1500,
+                 tol[dt], False, rows)
+    report["bsr"] = rows
+    main = next(r for r in rows if r["case"] == f"Q B={SP_TRAIN_B}"
+                and r["dtype"] == "bfloat16")
+    return dict(main, max_abs_err=max(r["max_abs_err"] for r in rows
+                                      if r["dtype"] == "bfloat16"
+                                      and "kernel_ms" in r))
+
+
+def trace_gap(a, b, keys, upto=None):
+    """{key: max_t |a − b| / max_t |b|} over the first ``upto`` steps."""
+    import numpy as np
+    sl = slice(0, upto)
+    return {k: float(np.abs(getattr(a, k)[sl] - getattr(b, k)[sl]).max()
+                     / max(float(np.abs(getattr(b, k)[sl]).max()), 1e-30))
+            for k in keys}
+
+
+def sparse_chunk_breakdown(cfg, ds, params, ids):
+    """Host-clock time of one chunk update on the BSR route (B=2, J=50)
+    and, from one profiled update, the device time by kernel and the
+    device's busy share (device time over the unprofiled wall time)."""
+    import torch
+    from functools import partial
+    from iadmm_tpu_torch.kernels.sparse import make_sparse_chunk_loss
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.train.harness import make_optimizer, \
+        make_train_chunk
+    from iadmm_tpu_torch.train.preload import preload_sparse_cache
+    from iadmm_tpu_torch.types import init_state
+    (data, _), = preload_sparse_cache(
+        ds, ids[:SP_TRAIN_B], 1, SP_TRAIN_B, cfg,
+        partial(scale_batch, iters=cfg.scaling_ites), device=DEV)
+    p = {k: torch.as_tensor(v, device=DEV).requires_grad_(True)
+         for k, v in params.items()}
+    body = make_train_chunk(
+        None, make_optimizer(p, cfg.lr, clip_grad_norm=cfg.clip_grad_norm),
+        cfg.outer_T, SP_K, cfg.sigma,
+        loss_fn=make_sparse_chunk_loss(cfg.sigma, SP_K, cfg.outer_T))
+    st = init_state(SP_TRAIN_B, data.num_var, data.num_constr, SP_H,
+                    device=DEV)
+
+    def update():
+        body(p, st, data, 0)
+
+    update()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    top, dev_ms = device_time_by_kernel(update, top=10, total=True)
+    return dict(chunk_update_ms=times, device_ms=dev_ms,
+                device_busy_share=dev_ms / min(times),
+                train_instance_iters_per_s=SP_TRAIN_B * SP_K
+                / (min(times) / 1e3),
+                device_ms_by_kernel=top)
+
+
+def phase_sparse(ds, gen_s, report):
+    """(j): train Sparse_QP_Large on the BSR route with harness.train, then
+    evaluate the reloaded checkpoint with run_test on the BSR and the dense
+    route."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.config import ExperimentConfig
+    from iadmm_tpu_torch.evaluation.driver import run_test
+    from iadmm_tpu_torch.kernels import lstm_cell, sparse_matvec as tsm
+    from iadmm_tpu_torch.problems.io import split_ids
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    from iadmm_tpu_torch.train import checkpoint as ckpt
+    from iadmm_tpu_torch.train.harness import train
+    shutil.rmtree(SPARSE_DIR, ignore_errors=True)
+    # scripts/run_workload.py's Sparse_QP_Large profile; the gate is open
+    # (eq_tol) so that 2 epochs write a checkpoint.
+    cfg = ExperimentConfig.from_dict(dict(
+        prob_type="Sparse_QP", num_var=SP_N, num_ineq=SP_MI,
+        data_size=SP_DATA, hidden_dim=SP_H, sigma=SIGMA, outer_T=SP_K,
+        truncated_length=SP_K, test_outer_T=SP_K, batch_size=SP_TRAIN_B,
+        test_batch_size=SP_TEST_B, lr=5e-5, clip_grad_norm=1.0,
+        num_epoch=TRAIN_EPOCHS, val_frac=1 / 11, test_frac=5 / 11,
+        eq_tol=1e9, scaling=True, sparse=True, sparse_format="bsr",
+        matvec_mode="bf16", use_pallas=True, gate_dtype="bfloat16",
+        train_backend="step", feas_rest=True, feas_rest_num=POLISH_STEPS,
+        save_dir=SPARSE_DIR))
+    train_ids, _, test_ids = split_ids(cfg.data_size, cfg.val_frac,
+                                       cfg.test_frac, cfg.seed)
+    if len(test_ids) < SP_TEST_B:
+        raise PhaseError(f"j: test split of {len(test_ids)} < {SP_TEST_B}")
+    test_ids = test_ids[:SP_TEST_B]
+    chunks = TRAIN_EPOCHS * (len(train_ids) // SP_TRAIN_B)
+    p0 = lstm_init(torch.Generator().manual_seed(cfg.seed), 2, SP_H, SP_K,
+                   device=DEV)
+    bsr_c, cell_c = tsm.bsr_matvec, lstm_cell.fused_lstm_cell
+    for c in (bsr_c, cell_c):   # the sparse path, counted from 0
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(cfg, ds, verbose=True, device=DEV)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = bsr_c.launches
+    losses = [h["train_loss"] for h in res.history]
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_EPOCHS:
+        raise PhaseError(f"j train: losses {losses}")
+    # per chunk: 9 matvecs a step forward, all but 5 of step 0's backward
+    # (the detached start state), and one Qv a epoch for the train objective
+    want = chunks * (18 * SP_K - 5) + TRAIN_EPOCHS
+    if train_launches != want:
+        raise PhaseError(f"j train: {train_launches} BSR launches, "
+                         f"expected {want}")
+    moved = max(float((res.params[k] - p0[k]).abs().max()) for k in p0)
+    if not moved > 0:
+        raise PhaseError("j train: the parameters did not change")
+    params = ckpt.load_checkpoint(res.checkpoint_path)["params"]
+    routes = dict(
+        bsr=cfg,
+        dense=dataclasses.replace(cfg, sparse=False),
+        dense_f32_cell=dataclasses.replace(cfg, sparse=False,
+                                           use_pallas=False,
+                                           gate_dtype="float32",
+                                           feas_rest=False))
+    reps = {}
+    for name in ("bsr", "dense"):   # the main path
+        before = bsr_c.launches
+        reps[name] = run_test(routes[name], ds, params, test_ids=test_ids,
+                              verbose=False, device=DEV)
+        if name == "bsr" and bsr_c.launches - before != 2 * 9 * SP_K:
+            raise PhaseError(f"j run_test: {bsr_c.launches - before} BSR "
+                             f"launches, expected {2 * 9 * SP_K}")
+    launches = dict(bsr=bsr_c.launches, cell=cell_c.launches)
+    peak = torch.cuda.max_memory_allocated()
+    # comparisons, outside the counted path: the dense route at the BSR
+    # route's cell precision, and the BSR route with permuted hidden units
+    reps["dense_f32_cell"] = run_test(routes["dense_f32_cell"], ds, params,
+                                      test_ids=test_ids, verbose=False,
+                                      device=DEV)
+    perm = torch.randperm(SP_H, generator=torch.Generator().manual_seed(3))
+    pp = permute_hidden({k: torch.as_tensor(v) for k, v in params.items()},
+                        perm)
+    reps["bsr_perm"] = run_test(dataclasses.replace(cfg, feas_rest=False),
+                                ds, {k: v.numpy() for k, v in pp.items()},
+                                test_ids=test_ids, verbose=False, device=DEV)
+    breakdown = sparse_chunk_breakdown(cfg, ds, params, train_ids)
+    for name, r in reps.items():
+        for k in ("obj", "ls_res", "primal_res", "dual_res"):
+            if not np.isfinite(getattr(r, k)).all():
+                raise PhaseError(f"j {name}: non-finite {k} trace")
+        if r.x_final.shape != (SP_TEST_B, SP_N):
+            raise PhaseError(f"j {name}: x_final {r.x_final.shape}")
+    keys4 = ("obj", "primal_res", "dual_res", "ls_res")
+    keys3 = keys4[:3]
+    same6 = trace_gap(reps["bsr"], reps["dense_f32_cell"], keys4, K_CHECK)
+    same50 = trace_gap(reps["bsr"], reps["dense_f32_cell"], keys3)
+    own50 = trace_gap(reps["bsr_perm"], reps["bsr"], keys3)
+    prof6 = trace_gap(reps["bsr"], reps["dense"], keys4, K_CHECK)
+    prof50 = trace_gap(reps["bsr"], reps["dense"], keys3)
+    row = dict(
+        config=(f"Sparse_QP_Large: n={SP_N}, m={SP_MI} box rows, h={SP_H}, "
+                f"K=outer_T={SP_K}, B={SP_TRAIN_B}, test B={SP_TEST_B}, "
+                f"bf16 (8,128) tiles, train_backend='step'"),
+        dataset_s=gen_s, train_s=train_s,
+        epochs=[{k: h[k] for k in ("epoch", "train_loss", "train_obj",
+                                   "val_obj", "train_time", "val_time")}
+                for h in res.history],
+        chunks=chunks, train_bsr_launches=train_launches,
+        launches=launches, max_param_change=moved,
+        run_test={name: dict(total_s=r.total_time,
+                             parallel_s_per_instance=r.parallel_time,
+                             stage2_s=(r.stage2.total_time if r.stage2
+                                       else None),
+                             last_row=r.table().splitlines()[0] + " || "
+                             + r.row(SP_K - 1),
+                             stage2_final_primal_res=(
+                                 float(r.stage2.primal_res[-1])
+                                 if r.stage2 else None))
+                  for name, r in reps.items()},
+        gap_bsr_vs_dense_f32_cell_first6=same6,
+        gap_bsr_vs_dense_f32_cell_K50=same50,
+        gap_bsr_vs_permuted_bsr_K50=own50,
+        gap_bsr_vs_dense_profile_first6=prof6,
+        gap_bsr_vs_dense_profile_K50=prof50,
+        chunk_update_breakdown=breakdown,
+        tol=(f"BSR vs dense at the same cell precision: every trace to "
+             f"{ROUTE_RTOL_6} of max|ref| over the first {K_CHECK} steps; "
+             f"obj/primal/dual over K={SP_K} to {MAX_GAP_OVER_ROUNDING}x the "
+             f"BSR route's own gap under a hidden-unit permutation (at least "
+             f"{ROUTE_FLOOR_K}); BSR vs the dense profile (bf16-gate cell "
+             f"kernel): primal, dual and ls_res to {PROFILE_RTOL_6} over the "
+             f"first {K_CHECK} steps, obj (a cancelling sum near 0 there) "
+             f"reported only"),
+        max_memory_allocated_bytes=peak)
+    say("j sparse train + run_test", **row)
+    for k in keys4:
+        if not same6[k] <= ROUTE_RTOL_6:
+            raise PhaseError(f"j: {k} differs between the BSR and the dense "
+                             f"route by {same6[k]:.3e} in {K_CHECK} steps")
+    for k in keys4[1:]:
+        if not prof6[k] <= PROFILE_RTOL_6:
+            raise PhaseError(f"j: {k} differs between the BSR route and the "
+                             f"dense profile by {prof6[k]:.3e}")
+    for k in keys3:
+        if not same50[k] <= max(MAX_GAP_OVER_ROUNDING * own50[k],
+                                ROUTE_FLOOR_K):
+            raise PhaseError(f"j: {k} gap {same50[k]:.3e} over K={SP_K} "
+                             f"exceeds {MAX_GAP_OVER_ROUNDING}x the BSR "
+                             f"route's own {own50[k]:.3e}")
+    report["sparse"] = row
+    shutil.rmtree(SPARSE_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -876,6 +1255,14 @@ def main() -> int:
     cell_all += g["cell"]
     say("training path launches", **g)
     phase_step_vs_fused(params, scaled_t, report)
+    del data_b, requests, data_t, scaled_t
+    torch.cuda.empty_cache()
+
+    ds_sp, gen_s = sparse_dataset()
+    bsr_row = phase_bsr(ds_sp, report)
+    j = phase_sparse(ds_sp, gen_s, report)
+    cell_all += j["cell"]
+    say("sparse path launches", **j)
 
     def entry(name, src, replaces, key, launches):
         r = report[key]
@@ -907,6 +1294,13 @@ def main() -> int:
              ms=tk["bwd_ms"], plain_ms=tk["bwd_plain_ms"],
              bound_ms=tk["bwd_bound_ms"], bound_by=tk["bwd_bound_by"],
              library_ms=tk["bwd_library_ms"]),
+        dict(name="bsr_matvec", route="cuda",
+             source="iadmm_tpu_torch/kernels/csrc/bsr_matvec.cu",
+             replaces="iadmm_tpu/kernels/sparse_matvec.py:116",
+             launches=j["bsr"], max_abs_err=bsr_row["max_abs_err"],
+             ms=bsr_row["kernel_ms"], plain_ms=bsr_row["plain_ms"],
+             bound_ms=bsr_row["bound_ms"], bound_by=bsr_row["bound_by"],
+             library_ms=bsr_row["library_ms"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

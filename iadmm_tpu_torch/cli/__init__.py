@@ -1,6 +1,7 @@
 """Command-line entry points of the port:
 
   python -m iadmm_tpu_torch.cli.train --config configs/qp_small.yaml ...
+  python -m iadmm_tpu_torch.cli.test --config configs/qp_small.yaml ...
 
 Flags mirror every field of :class:`iadmm_tpu_torch.config.ExperimentConfig`
 (the JAX package's schema); flags override the YAML file, and unknown keys

@@ -7,9 +7,11 @@ packages.  Unknown keys raise.
 The port accepts every key of the JAX package.  Some select routes it has
 not ported; :meth:`ExperimentConfig.check_ported` raises
 ``NotImplementedError`` for a value that needs one (see ROADMAP.md).
-``epoch_scan`` and ``preload`` only choose how the JAX package dispatches
-an epoch and where it keeps the train split; the port always runs its
-per-batch route and converts each batch when it is used, whatever they say.
+``epoch_scan`` and ``preload`` choose how the JAX package dispatches an
+epoch and where it keeps the train split; the port runs its per-batch
+route whatever they say, and reads ``preload`` only on the sparse route
+(``'never'`` tiles each batch when it is used, anything else tiles the
+train split once).
 """
 
 from __future__ import annotations
@@ -88,7 +90,8 @@ class ExperimentConfig:
     remat: bool = False             # recompute each step in the backward
     resume: bool = False            # resume training from the run checkpoint
     preload: str = "auto"           # JAX: train split on device once; the
-                                    # port converts per batch either way
+                                    # port: the sparse tile cache unless
+                                    # 'never'
     preload_dtype: str = "float32"  # Q/A0 storage of the preloaded stack
     train_hours: float = 0.0        # wall-clock training budget (0 = off)
     train_backend: str = "step"     # 'fused' = the training kernels
@@ -119,8 +122,11 @@ class ExperimentConfig:
         if self.num_devices > 1 or self.model_devices > 1:
             unported.append("num_devices/model_devices > 1 (data and "
                             "tensor parallelism)")
-        if self.sparse:
-            unported.append("sparse=True (the BCOO/BSR routes)")
+        if self.sparse and self.sparse_format != "bsr":
+            unported.append(f"sparse=True with sparse_format="
+                            f"{self.sparse_format!r} (the BCOO route)")
+        if self.theory:
+            unported.append("theory=True (the theory-condition traces)")
         if self.preload_dtype != "float32":
             unported.append(f"preload_dtype={self.preload_dtype!r}")
         if self.train_backend not in ("step", "fused"):

@@ -4,10 +4,9 @@
 
 prints the bounds of the TPU kernels the port has not ported yet, from
 their shapes: the segment pair of ``train_rollout.py`` at the flagship
-chunk (B=2, J=100, S=2000, h=800) and the BSR matvec at
-``scripts/bench_sparse.py``'s default (B=8, n=1000, band half-widths
-8..256, (8, 128) bf16 tiles, one matvec).  ``chip_smoke.py`` computes the
-ported kernels' bounds with ``bound_ms`` from the inputs of its run.
+chunk (B=2, J=100, S=2000, h=800).  ``chip_smoke.py`` computes the ported
+kernels' bounds with ``bound_ms`` (and :func:`bsr_matvec`) from the inputs
+of its run.
 
 A bound is the larger of two times: the bytes the work must move (each
 input read once, each output written once) over the memory rate, and its
@@ -17,8 +16,6 @@ operations over the peak rate of their type (NVIDIA data sheet, dense).
 from __future__ import annotations
 
 import json
-
-import numpy as np
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -53,31 +50,27 @@ def segment_pair(B=2, J=100, n=1000, m=1000, h=800):
             f32_ops=J * M * (6.0 * 2 * 4 * h + 60.0 * h))}
 
 
-def bsr_tiles(nb=1000, w=8, tm=8, tn=128):
-    """Stored (tm, tn) tiles of an nb x nb band of half-width w."""
-    idx = np.arange(nb)
-    band = np.abs(idx[:, None] - idx[None, :]) <= w
-    rows, cols = -(-nb // tm), -(-nb // tn)
-    pad = np.zeros((rows * tm, cols * tn), bool)
-    pad[:nb, :nb] = band
-    return int(pad.reshape(rows, tm, cols, tn).any(axis=(1, 3)).sum())
+def stored_tiles(vals) -> int:
+    """Tiles of a (…, TM, TN) BSR value array (numpy or torch) that hold a
+    nonzero: the tiles the data needs, pad tiles left out."""
+    return int((vals != 0).any(-1).any(-1).sum())
 
 
-def bsr_matvec(B=8, nb=1000, widths=(8, 16, 64, 128, 256), tm=8, tn=128):
-    """Bounds of one ``_bsr_matvec_kernel`` call per band half-width: the
-    stored bf16 tiles and their int32 indices, the vector in and out."""
-    out = {}
-    for w in widths:
-        tiles = bsr_tiles(nb, w, tm, tn)
-        out[f"bsr_matvec w={w} ({tiles} tiles/instance)"] = bound_ms(
-            B * (tiles * (tm * tn * 2 + 4) + nb * 8),
-            bf16_ops=B * 2.0 * tiles * tm * tn)
-    return out
+def bsr_matvec(tiles, B, m, n, tm=8, tn=128, tile_bytes=2):
+    """Bound of one BSR matvec over a batch of B (m, n) matrices with
+    ``tiles`` stored (tm, tn) tiles in all: the tiles (bf16 for
+    ``tile_bytes=2``, else float32) and their int32 indices, the float32
+    vector in and out; 2 operations per tile element at the tiles' rate."""
+    ops = 2.0 * tiles * tm * tn
+    nbytes = tiles * (tm * tn * tile_bytes + 4) + B * (n + m) * 4
+    if tile_bytes == 2:
+        return bound_ms(nbytes, bf16_ops=ops)
+    return bound_ms(nbytes, f32_ops=ops)
 
 
 def unported():
     return {k: dict(bound_ms=v[0], bound_by=v[1])
-            for k, v in {**segment_pair(), **bsr_matvec()}.items()}
+            for k, v in segment_pair().items()}
 
 
 if __name__ == "__main__":

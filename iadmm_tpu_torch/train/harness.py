@@ -15,10 +15,15 @@ rollback, a ``_latest`` checkpoint every 10 epochs and at exit, and a JSONL
 
 ``train_backend='step'`` differentiates ``chunk_loss`` over the learned
 step (the cell kernel with ``use_pallas``); ``'fused'`` uses the training
-kernels of :mod:`iadmm_tpu_torch.kernels.train_rollout`.  Not ported: the
-whole-epoch scan and the preloaded train stack (``epoch_scan`` and
-``preload`` are accepted and the per-batch route runs), the TPU-worker crash
-recovery, the sparse routes and the mesh paths (see ROADMAP.md).
+kernels of :mod:`iadmm_tpu_torch.kernels.train_rollout`.  ``sparse=True``
+with ``sparse_format='bsr'`` trains over tile-sparse problem data
+(:mod:`iadmm_tpu_torch.kernels.sparse`, the BSR matvec kernel): the train
+split is scaled and tiled once into a device cache
+(:mod:`iadmm_tpu_torch.train.preload`), or per batch with
+``preload='never'``; validation stays dense.  Not ported: the whole-epoch
+scan and the preloaded dense train stack (``epoch_scan`` and ``preload``
+are accepted and the per-batch route runs), the TPU-worker crash recovery,
+the BCOO route and the mesh paths (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from ..config import ExperimentConfig
 from ..evaluation import metrics
+from ..kernels import sparse as sparse_mod
 from ..problems.generators import RawDataset
 from ..problems.io import split_ids, to_qp_batch
 from ..scaling import scale_batch
@@ -43,6 +49,7 @@ from ..types import IterState, init_state
 from ..utils.logging import RunLog
 from . import checkpoint as ckpt
 from .early_stopping import EarlyStopping
+from .preload import preload_sparse_cache
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -219,6 +226,9 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
             else cfg.matvec_mode)
 
     fused_loss = None
+    if cfg.sparse and cfg.train_backend == "fused":
+        raise ValueError("train_backend='fused' is a dense-data kernel; "
+                         "use the step path with sparse=True")
     if cfg.train_backend == "fused":
         if cfg.model_name != "lstm":
             raise ValueError("train_backend='fused' supports the lstm cell")
@@ -231,9 +241,14 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
             compute_dtype="bfloat16" if cfg.matvec_mode == "bf16"
             else "float32")
 
+    loss_override = fused_loss
+    if cfg.sparse:
+        loss_override = sparse_mod.make_sparse_chunk_loss(
+            cfg.sigma, cfg.truncated_length, cfg.outer_T, remat=cfg.remat)
+
     train_chunk = make_train_chunk(step_fn, optimizer, cfg.outer_T,
                                    cfg.truncated_length, cfg.sigma,
-                                   remat=cfg.remat, loss_fn=fused_loss)
+                                   remat=cfg.remat, loss_fn=loss_override)
     val_fn = make_val_fn(step_fn, cfg.outer_T, cfg.sigma, cfg.hidden_dim)
     scale = partial(scale_batch, iters=cfg.scaling_ites)
 
@@ -292,6 +307,14 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
     history = []
     epochs_run = 0
 
+    # Sparse route: scale and tile the train split once into a device
+    # cache; preload='never' converts each batch when it is used.
+    sparse_cache = None
+    if cfg.sparse and cfg.preload != "never":
+        sparse_cache = preload_sparse_cache(
+            ds, train_ids[:n_batches * cfg.batch_size], n_batches,
+            cfg.batch_size, cfg, scale, device=device, verbose=verbose)
+
     t_begin = time.time()
     epoch = start_epoch
     while epoch < cfg.num_epoch:
@@ -303,20 +326,32 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
         t_start = time.time()
         last = None
         for bi in range(n_batches):
-            ids = train_ids[bi * cfg.batch_size:(bi + 1) * cfg.batch_size]
-            data = to_qp_batch(ds, ids, device=device)
-            cost = None
-            if cfg.scaling:
-                data, sc = scale(data)
-                cost = sc.cost
+            if sparse_cache is not None:
+                data, cost = sparse_cache[bi]
+                chunk_data = data
+            else:
+                ids = train_ids[bi * cfg.batch_size:
+                                (bi + 1) * cfg.batch_size]
+                data = to_qp_batch(ds, ids, device=device)
+                cost = None
+                if cfg.scaling:
+                    data, sc = scale(data)
+                    cost = sc.cost
+                chunk_data = (sparse_mod.from_dense(
+                    data, fmt=cfg.sparse_format,
+                    dtype=sparse_mod.tile_dtype(cfg.matvec_mode))
+                    if cfg.sparse else data)
             st = init_state(cfg.batch_size, data.num_var, data.num_constr,
                             cfg.hidden_dim, device=device)
             for ci in range(n_chunks):
-                st, loss = train_chunk(params, st, data,
+                st, loss = train_chunk(params, st, chunk_data,
                                        ci * cfg.truncated_length)
             last = (data, st, cost, loss)
         data, st, cost, loss = last
-        train_obj = metrics.obj_fn(st.x, data.Q, data.p)
+        if sparse_cache is not None:
+            train_obj = sparse_mod.obj_fn_sparse(st.x, data)
+        else:
+            train_obj = metrics.obj_fn(st.x, data.Q, data.p)
         if cost is not None:
             train_obj = train_obj / cost
         train_obj = float(train_obj.mean())

@@ -1,8 +1,10 @@
 """The port's kernel bounds (iadmm_tpu_torch.kernels.bounds)."""
 
+import numpy as np
 import pytest
 
 from iadmm_tpu_torch.kernels import bounds
+from iadmm_tpu_torch.kernels.sparse_matvec import bsr_tiles_host
 
 
 def test_bound_takes_the_larger_limit():
@@ -16,9 +18,11 @@ def test_bound_takes_the_larger_limit():
 
 @pytest.mark.parametrize("nb,w,tm,tn", [(1000, 0, 8, 128), (1000, 8, 8, 128),
                                         (1000, 256, 8, 128), (37, 3, 4, 8)])
-def test_bsr_tiles_match_a_direct_count(nb, w, tm, tn):
+def test_bsr_bound_counts_the_stored_tiles(nb, w, tm, tn):
     """A tile is stored when its rows and columns hold a band entry, i.e.
-    the distance between its row range and its column range is <= w."""
+    the distance between its row range and its column range is <= w; the
+    bound reads those tiles (bf16) and their indices once, the vector in
+    and out in float32."""
     count = 0
     for r0 in range(0, nb, tm):
         r1 = min(r0 + tm, nb) - 1
@@ -26,7 +30,14 @@ def test_bsr_tiles_match_a_direct_count(nb, w, tm, tn):
             c1 = min(c0 + tn, nb) - 1
             gap = max(c0 - r1, r0 - c1, 0)
             count += gap <= w
-    assert bounds.bsr_tiles(nb, w, tm, tn) == count
+    idx = np.arange(nb)
+    band = (np.abs(idx[:, None] - idx[None, :]) <= w).astype(np.float32)
+    vals, _ = bsr_tiles_host(np.stack([band, 2 * band]), (tm, tn))
+    tiles = bounds.stored_tiles(vals)
+    assert tiles == 2 * count
+    ms, by = bounds.bsr_matvec(tiles, 2, nb, nb, tm, tn)
+    nbytes = tiles * (tm * tn * 2 + 4) + 2 * 2 * nb * 4
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
 def test_segment_pair_bounds_at_the_flagship():

@@ -93,6 +93,35 @@ def test_stage2_matches_plain(dev, refine):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tm,m,n", [(8, 200, 300), (128, 37, 141),
+                                    (8, 8, 128)])
+def test_bsr_matvec_matches_plain(dev, dtype, tm, m, n):
+    """Forward and backward to 1e-5 (bf16 tiles) or 1e-6 (float32 tiles)
+    of max|ref|; two calls bitwise equal.  Covers ragged m and n and K=1
+    (the last case)."""
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    g = torch.Generator().manual_seed(m + n)
+    M = torch.randn((3, m, n), generator=g)
+    M = M * (torch.rand((3, m, n), generator=g) < 0.1)
+    Mb, MTb = tsm.bsr_pair_from_dense(M.numpy(), (tm, 128), dtype,
+                                      device=dev)
+    v = torch.randn((3, n), generator=g).to(dev).requires_grad_(True)
+    w = torch.randn((3, m), generator=g).to(dev)
+    tol = 1e-5 if dtype == torch.bfloat16 else 1e-6
+    before = tsm.bsr_matvec.launches
+    out = tsm.bsr_matvec_ad(Mb, MTb, v)
+    (out * w).sum().backward()
+    assert tsm.bsr_matvec.launches == before + 2
+    ref = tsm.bsr_matvec_plain(Mb, v.detach())
+    torch.testing.assert_close(out.detach(), ref, rtol=0,
+                               atol=tol * float(ref.abs().max()))
+    gref = tsm.bsr_matvec_plain(MTb, w)
+    torch.testing.assert_close(v.grad, gref, rtol=0,
+                               atol=tol * float(gref.abs().max()))
+    assert torch.equal(tsm.bsr_matvec(Mb, v.detach()), out.detach())
+
+
 def _train_inputs(dev, B=2, n=20, mi=12, me=10, h=24, K=8, seed=5):
     from iadmm_tpu_torch.kernels.lstm_cell import CELL_KEYS
     data = _qp(dev, B, n, mi, me)

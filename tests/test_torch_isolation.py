@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax():
         "import iadmm_tpu_torch, iadmm_tpu_torch.api, "
         "iadmm_tpu_torch.convert, iadmm_tpu_torch.kernels.rollout_kernel, "
         "iadmm_tpu_torch.config, iadmm_tpu_torch.train.harness, "
-        "iadmm_tpu_torch.kernels.train_rollout, iadmm_tpu_torch.cli.train\n"
+        "iadmm_tpu_torch.kernels.train_rollout, iadmm_tpu_torch.cli.train, "
+        "iadmm_tpu_torch.kernels.sparse_matvec, "
+        "iadmm_tpu_torch.kernels.sparse, iadmm_tpu_torch.train.preload, "
+        "iadmm_tpu_torch.evaluation.driver, iadmm_tpu_torch.cli.test\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
