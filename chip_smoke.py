@@ -38,15 +38,17 @@ two at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50):
       float32 (8, 128) tiles, and on a ragged (128, 128)-tile case: forward
       and backward to 1e-5 (bf16) or 1e-6 (float32) of max|ref|, two calls
       bitwise equal; its device time (launches queued behind a sleep, so
-      the Python wrapper's cost is hidden) beside its bound, the plain
-      version and ``torch.bmm`` of the densified bf16 matrix;
+      the Python wrapper's cost is hidden), warm (back to back) and cold
+      (each launch after an L2 flush), beside its bound, the plain version
+      and ``torch.bmm`` of the densified bf16 matrix;
   (j) ``harness.train`` on the BSR route (22 generated instances: 10
       train, 2 val, 10 test; 2 epochs at B=2, J = outer_T = 50,
       train_backend='step'), then ``run_test`` of the reloaded checkpoint
       on the BSR and the dense route at B=10 with Stage II, the traces held
       to the dense route at the BSR route's cell precision (the first 6
-      steps to 1e-3; K=50 to 4x the BSR route's own gap under a
-      hidden-unit permutation) and to the dense profile, whose cell is the
+      steps to 1e-3; K=50 to 4x the dense route's own gap under a
+      hidden-unit permutation, at least 4 float32 ulps) and to the dense
+      profile, whose cell is the
       bf16-gate cell kernel (the first 6 steps to 1e-2); a profiled chunk
       update gives the device's busy share.
 
@@ -99,7 +101,11 @@ SP_TILE = (8, 128)
 BSR_TOL_BF16, BSR_TOL_F32 = 1e-5, 1e-6   # of max|ref|, kernel vs plain
 ROUTE_RTOL_6 = 1e-3     # BSR vs dense route, first K_CHECK steps
 PROFILE_RTOL_6 = 1e-2   # BSR vs dense profile (bf16-gate cell kernel)
-ROUTE_FLOOR_K = 1e-5    # float32 rounding floor of the K=50 route gap
+# Floor of the K=50 route gate: 4 float32 ulps of a trace's largest value.
+# A hidden-unit permutation can leave a trace bit-for-bit the same (the
+# dual residual on an H100), while two routes still differ there by an ulp.
+ROUTE_FLOOR_K = MAX_GAP_OVER_ROUNDING * 2.0 ** -23
+FLUSH_BYTES = 256 << 20   # read between cold launches: 5x the 50 MB L2
 DEV = "cuda"
 
 
@@ -122,15 +128,19 @@ def cuda_ms(fn, reps=3, warmup=1):
     return s.elapsed_time(e) / reps
 
 
-def queued_ms(fn, reps=50, sleep_ms=50.0):
+def queued_ms(fn, reps=50, sleep_ms=50.0, flush=None):
     """Device ms per call of ``fn`` without its host launch cost: a sleep
     kernel holds the stream while the host queues ``reps`` calls behind
-    it, so they run back to back on the device.  Raises if the host took
-    longer to queue them than the sleep lasted."""
+    it, so they run back to back on the device.  With ``flush``, each call
+    follows a ``flush()`` (a read larger than the L2 cache, so ``fn`` finds
+    its operands cold) and is timed alone between its own events.  Raises
+    if the host took longer to queue them than the sleep lasted."""
     import torch
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
     fn()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
+    s, e = event(), event()
     torch.cuda.synchronize()
     s.record()
     torch.cuda._sleep(1_000_000)
@@ -139,16 +149,25 @@ def queued_ms(fn, reps=50, sleep_ms=50.0):
     cycles = int(1_000_000 * sleep_ms / s.elapsed_time(e))
     torch.cuda._sleep(cycles)
     t0 = time.perf_counter()
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
+    if flush is None:
+        pairs = [(s, e)]
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+    else:
+        pairs = [(event(), event()) for _ in range(reps)]
+        for a, b in pairs:
+            flush()
+            a.record()
+            fn()
+            b.record()
     host_ms = (time.perf_counter() - t0) * 1e3
-    e.synchronize()
+    pairs[-1][1].synchronize()
     if host_ms >= sleep_ms:
         raise PhaseError(f"queued_ms: queuing took {host_ms:.2f} ms, longer "
                          f"than the {sleep_ms} ms sleep")
-    return s.elapsed_time(e) / reps
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def compare(name, out, ref, atol, rtol):
@@ -545,10 +564,10 @@ def unpermute_grads(grads, perm):
             dalpha)
 
 
-def device_time_by_kernel(fn, top=12, total=False):
-    """{CUDA kernel name: device ms} of one call of ``fn`` under
-    torch.profiler, largest first (the breakdown of PERF.md §5); with
-    ``total``, also the device ms summed over every kernel."""
+def device_time_by_kernel(fn, top=12):
+    """({CUDA kernel name: device ms} of the ``top`` kernels, largest first
+    (the breakdown of PERF.md §5), device ms summed over every kernel) of
+    one call of ``fn`` under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -563,10 +582,7 @@ def device_time_by_kernel(fn, top=12, total=False):
             row["ms"] += ev.device_time_total / 1e3
             row["calls"] += ev.count
     rows = sorted(agg.items(), key=lambda kv: -kv[1]["ms"])
-    out = dict(rows[:top])
-    if total:
-        return out, sum(r["ms"] for r in agg.values())
-    return out
+    return dict(rows[:top]), sum(r["ms"] for r in agg.values())
 
 
 def phase_train_kernels(params, data, report):
@@ -668,7 +684,7 @@ def phase_train_kernels(params, data, report):
                                                       d, d, **kw),
                            reps=1, warmup=0)
     del pstr
-    breakdown = device_time_by_kernel(
+    breakdown, _ = device_time_by_kernel(
         lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw))
     Hk = kstr[0][0].reshape(M, h)
     Ub = params["U"].to(torch.bfloat16)
@@ -926,15 +942,25 @@ def bsr_case(name, M, MT, dense, B, m, n, tol, timed, rows):
         b_ms, b_by = bsr_bound(tiles, B, m, n, TM, TN,
                                M.vals.element_size())
         vb = v.to(torch.bfloat16)[..., None]
-        # device times (launches queued behind a sleep); paced_ms is the
-        # kernel as Python launches it back to back, wrapper included
+        buf = torch.ones(FLUSH_BYTES // 4, device=DEV)
+
+        def flush():
+            buf.sum()
+        # device times (launches queued behind a sleep): warm, back to back
+        # on the same operands, and cold, each call after an L2 flush;
+        # paced_ms is the kernel as Python launches it back to back,
+        # wrapper included
         row.update(
             stored_tiles=tiles,
             kernel_ms=queued_ms(lambda: tsm.bsr_matvec(M, v)),
+            kernel_cold_ms=queued_ms(lambda: tsm.bsr_matvec(M, v),
+                                     flush=flush),
             paced_ms=cuda_ms(lambda: tsm.bsr_matvec(M, v), reps=50,
                              warmup=5),
             plain_ms=queued_ms(lambda: tsm.bsr_matvec_plain(M, v), reps=20),
             library_ms=queued_ms(lambda: torch.bmm(dense, vb)),
+            library_cold_ms=queued_ms(lambda: torch.bmm(dense, vb),
+                                      flush=flush),
             bound_ms=b_ms, bound_by=b_by)
     rows.append(row)
     say("i bsr", **row)
@@ -1028,7 +1054,7 @@ def sparse_chunk_breakdown(cfg, ds, params, ids):
         update()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    top, dev_ms = device_time_by_kernel(update, top=10, total=True)
+    top, dev_ms = device_time_by_kernel(update, top=10)
     return dict(chunk_update_ms=times, device_ms=dev_ms,
                 device_busy_share=dev_ms / min(times),
                 train_instance_iters_per_s=SP_TRAIN_B * SP_K
@@ -1119,9 +1145,9 @@ def phase_sparse(ds, gen_s, report):
     perm = torch.randperm(SP_H, generator=torch.Generator().manual_seed(3))
     pp = permute_hidden({k: torch.as_tensor(v) for k, v in params.items()},
                         perm)
-    reps["bsr_perm"] = run_test(dataclasses.replace(cfg, feas_rest=False),
-                                ds, {k: v.numpy() for k, v in pp.items()},
-                                test_ids=test_ids, verbose=False, device=DEV)
+    reps["dense_f32_cell_perm"] = run_test(
+        routes["dense_f32_cell"], ds, {k: v.numpy() for k, v in pp.items()},
+        test_ids=test_ids, verbose=False, device=DEV)
     breakdown = sparse_chunk_breakdown(cfg, ds, params, train_ids)
     for name, r in reps.items():
         for k in ("obj", "ls_res", "primal_res", "dual_res"):
@@ -1133,7 +1159,8 @@ def phase_sparse(ds, gen_s, report):
     keys3 = keys4[:3]
     same6 = trace_gap(reps["bsr"], reps["dense_f32_cell"], keys4, K_CHECK)
     same50 = trace_gap(reps["bsr"], reps["dense_f32_cell"], keys3)
-    own50 = trace_gap(reps["bsr_perm"], reps["bsr"], keys3)
+    own50 = trace_gap(reps["dense_f32_cell_perm"], reps["dense_f32_cell"],
+                      keys3)
     prof6 = trace_gap(reps["bsr"], reps["dense"], keys4, K_CHECK)
     prof50 = trace_gap(reps["bsr"], reps["dense"], keys3)
     row = dict(
@@ -1158,15 +1185,16 @@ def phase_sparse(ds, gen_s, report):
                   for name, r in reps.items()},
         gap_bsr_vs_dense_f32_cell_first6=same6,
         gap_bsr_vs_dense_f32_cell_K50=same50,
-        gap_bsr_vs_permuted_bsr_K50=own50,
+        gap_dense_f32_cell_vs_permuted_K50=own50,
         gap_bsr_vs_dense_profile_first6=prof6,
         gap_bsr_vs_dense_profile_K50=prof50,
         chunk_update_breakdown=breakdown,
         tol=(f"BSR vs dense at the same cell precision: every trace to "
              f"{ROUTE_RTOL_6} of max|ref| over the first {K_CHECK} steps; "
              f"obj/primal/dual over K={SP_K} to {MAX_GAP_OVER_ROUNDING}x the "
-             f"BSR route's own gap under a hidden-unit permutation (at least "
-             f"{ROUTE_FLOOR_K}); BSR vs the dense profile (bf16-gate cell "
+             f"dense route's own gap under a hidden-unit permutation (at "
+             f"least {ROUTE_FLOOR_K:.3e}, {MAX_GAP_OVER_ROUNDING:g} float32 "
+             f"ulps); BSR vs the dense profile (bf16-gate cell "
              f"kernel): primal, dual and ls_res to {PROFILE_RTOL_6} over the "
              f"first {K_CHECK} steps, obj (a cancelling sum near 0 there) "
              f"reported only"),
@@ -1184,8 +1212,9 @@ def phase_sparse(ds, gen_s, report):
         if not same50[k] <= max(MAX_GAP_OVER_ROUNDING * own50[k],
                                 ROUTE_FLOOR_K):
             raise PhaseError(f"j: {k} gap {same50[k]:.3e} over K={SP_K} "
-                             f"exceeds {MAX_GAP_OVER_ROUNDING}x the BSR "
-                             f"route's own {own50[k]:.3e}")
+                             f"exceeds {MAX_GAP_OVER_ROUNDING}x the dense "
+                             f"route's own {own50[k]:.3e} and the floor "
+                             f"{ROUTE_FLOOR_K:.3e}")
     report["sparse"] = row
     shutil.rmtree(SPARSE_DIR, ignore_errors=True)
     return launches

@@ -23,7 +23,8 @@ from ..solvers import cells
 from ..solvers.rollouts import ls_norm, metrics_row, stack_traces
 from ..solvers.step import _schedules, admm_update
 from ..types import IterState, QPBatch
-from .sparse_matvec import BSRMatrix, bsr_from_dense, bsr_matvec_ad
+from .sparse_matvec import BSRMatrix, bsr_from_dense, bsr_matvec_ad, \
+    bsr_pair_from_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,28 +65,22 @@ def tile_dtype(matvec_mode: str) -> torch.dtype:
     return torch.bfloat16 if matvec_mode == "bf16" else torch.float32
 
 
-def from_dense(data: QPBatch, fmt: str = "bcoo", tile=(8, 128),
-               dtype=None, min_k=(0, 0, 0)) -> BSRQPBatch:
+def from_dense(data: QPBatch, fmt: str, tile=(8, 128),
+               dtype=torch.float32) -> BSRQPBatch:
     """Convert a dense QPBatch to the tile-sparse layout (``fmt='bsr'``):
     Q, A0 and A0ᵀ are tiled on the host with ``tile`` tiles stored as
-    ``dtype`` (default float32).  ``min_k`` (Q, A0, A0ᵀ) floors each padded
-    tile count K."""
+    ``dtype``."""
     if fmt == "bcoo":
         raise NotImplementedError(
             "the BCOO sparse format is not ported to PyTorch yet; use "
             "sparse_format='bsr' (see ROADMAP.md, Queue 1 item 13)")
     if fmt != "bsr":
         raise ValueError(f"unknown sparse format {fmt!r}")
-    dt = dtype or torch.float32
     dev = data.p.device
-    Qh = data.Q.detach().cpu().numpy()
-    Ah = data.A0.detach().cpu().numpy()
-    return BSRQPBatch(
-        Q=bsr_from_dense(Qh, tile, dt, min_k[0], dev),
-        p=data.p,
-        A0=bsr_from_dense(Ah, tile, dt, min_k[1], dev),
-        A0T=bsr_from_dense(Ah.transpose(0, 2, 1), tile, dt, min_k[2], dev),
-        zl=data.zl, zu=data.zu, eq_mask=data.eq_mask)
+    A0, A0T = bsr_pair_from_dense(data.A0, tile, dtype, dev)
+    return BSRQPBatch(Q=bsr_from_dense(data.Q, tile, dtype, device=dev),
+                      p=data.p, A0=A0, A0T=A0T,
+                      zl=data.zl, zu=data.zu, eq_mask=data.eq_mask)
 
 
 def kkt_feature_sparse(data, xv, x, y, z, sigma, rho_vec) -> torch.Tensor:
