@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``iadmm_tpu_torch/kernels/csrc`` (first use),
-then runs eight phases at the flagship shape QP_1000_500_500 / h=800 and
-two at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50):
+then runs eight phases at the flagship shape QP_1000_500_500 / h=800, two
+at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50) and four at the
+flagship's float32 precision profile (``configs/qp_1000_500_500.yaml``:
+float32 gates, float32 matvecs):
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16)
       and on a ragged small case;
@@ -50,19 +52,43 @@ two at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50):
       hidden-unit permutation, at least 4 float32 ulps) and to the dense
       profile, whose cell is the
       bf16-gate cell kernel (the first 6 steps to 1e-2); a profiled chunk
-      update gives the device's busy share.
+      update gives the device's busy share;
+  (k) the float32-gate cell kernel against its plain version (B=8,
+      S=2000, h=800, float32 and bf16 H/C, and a ragged small case): delta,
+      H', C' to F32_CELL_TOL of max|ref| (a bf16 H'/C' to one bf16 ulp
+      more), two calls bitwise equal; timed beside its bound, the plain
+      version and ``torch.matmul`` of H·U in float32;
+  (l) the float32 training kernels against their plain pair at B=2, as
+      (f): at J=6 every output and gradient leaf to F32_LEAF_TOL of its
+      max|ref|; at J=100 the backward on the plain streams to F32_LEAF_TOL
+      per leaf, each leaf end to end within 4x its own permuted-plain gap,
+      the backward twice bitwise equal; timed at J=100;
+  (m) the shipped config through the CLIs: a 16-instance dataset written
+      with ``save_npz``; ``cli.train`` on the step backend (the float32
+      cell kernel), 2 epochs; ``cli.test --feas_rest`` on its checkpoint,
+      the traces held to ``run_test`` with ``use_pallas=False`` (the plain
+      float32 cell: the first 6 steps to F32_LEAF_TOL, K=100 to 4x the
+      plain route's own gap under a permutation); ``cli.train
+      --train_backend fused`` (the float32 training kernels), 1 epoch; then
+      one chunk update on each backend from the same params, gated as (h);
+  (n) serving at the float32 profile: ``make_solver(params,
+      use_pallas=True, ...)`` with the default gate answers 3 requests of
+      B=8 (the step route over the float32 cell kernel, Stage II
+      'fused'), held to the LU Stage-II route as (d)/(e), or, where it is
+      further from that, to the float64 LU polish of the same iterates
+      within 4x the float32 LU route's own gap to it; the polish as in (d).
 
 Each phase prints its errors, tolerance, times and launch counts; any
-failure exits non-zero.  Launch counters are zeroed just before (d) and read
-just after (e) (serving), zeroed just before (g) and read just after it
-(training), and zeroed just before (j)'s training and read after its
-``run_test`` on the two routes (the sparse path).  The second-to-last line
-is the per-kernel JSON, the last line ``{"ok": true, "device": {...}}``.
-Weights are random from a seed (no trained checkpoint is in the
-repository).  Exits non-zero without a CUDA device.  Longer output (ptxas
-reports, ``report.json``) goes to ``chiprun_out/chip_smoke/``; the training
-runs' checkpoints go to ``results/chip_smoke/`` and
-``results/chip_smoke_sparse/`` and are removed at the end.
+failure exits non-zero.  Launch counters are zeroed just before each main
+path and read just after it: (d) and (e) (serving), (g) (training), (j)'s
+training and its ``run_test`` on the two routes (the sparse path), (m)'s
+three CLI runs (the shipped config) and (n) (float32 serving).  The
+second-to-last line is the per-kernel JSON, the last line ``{"ok": true,
+"device": {...}}``.  Weights are random from a seed (no trained checkpoint
+is in the repository).  Exits non-zero without a CUDA device.  Longer
+output (ptxas reports, ``report.json``, the CLI's output) goes to
+``chiprun_out/chip_smoke/``; the training runs' checkpoints and datasets go
+to ``results/chip_smoke*/`` and are removed at the end.
 """
 
 from __future__ import annotations
@@ -78,6 +104,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 TRAIN_DIR = os.path.join(ROOT, "results", "chip_smoke")
 SPARSE_DIR = os.path.join(ROOT, "results", "chip_smoke_sparse")
+FLAGSHIP_DIR = os.path.join(ROOT, "results", "chip_smoke_flagship")
+FLAGSHIP_CONFIG = os.path.join(ROOT, "configs", "qp_1000_500_500.yaml")
 
 N_VAR, N_INEQ, N_EQ, HIDDEN, K_ITERS = 1000, 500, 500, 800, 100
 SERVE_BATCH, POLISH_STEPS = 8, 20
@@ -106,6 +134,14 @@ PROFILE_RTOL_6 = 1e-2   # BSR vs dense profile (bf16-gate cell kernel)
 # dual residual on an H100), while two routes still differ there by an ulp.
 ROUTE_FLOOR_K = MAX_GAP_OVER_ROUNDING * 2.0 ** -23
 FLUSH_BYTES = 256 << 20   # read between cold launches: 5x the 50 MB L2
+# The float32 profile (k)-(n): kernel vs plain, float32 sums in another
+# order (of max|ref|)
+F32_CELL_TOL = 1e-5
+F32_LEAF_TOL = 1e-4
+# (m): 16 instances; val and test fractions raised to 2 and 4 instances, as
+# scripts/run_workload.py raises them for small datasets (the config's 0.01
+# would leave no validation instance)
+FLAGSHIP_DATA, FLAGSHIP_VAL, FLAGSHIP_TEST = 16, 2 / 16, 4 / 16
 DEV = "cuda"
 
 
@@ -200,30 +236,40 @@ def qp_batch(B, seed, n=N_VAR, mi=N_INEQ, me=N_EQ):
     return to_qp_batch(ds, device=DEV)
 
 
-def phase_cell(params, report):
+def cell_case(params, B, S, h, hc, g):
+    """Weights, inputs and state of one cell case: the flagship weights
+    (U x5: gates of order 1) at h=HIDDEN, else small random ones cut to h."""
     import torch
     from iadmm_tpu_torch.kernels import lstm_cell as lc
-    from iadmm_tpu_torch.kernels.bounds import bound_ms
+    if h == HIDDEN:
+        p = dict(params)
+        p["U"] = params["U"] * 5.0
+    else:
+        p = {k: (0.05 * torch.randn(v.shape, generator=g)).cuda()
+             for k, v in params.items()}
+        p["U"] = p["U"][:h, :4 * h].contiguous()
+        p["W"] = p["W"][:, :4 * h].contiguous()
+        p["b"] = p["b"][:4 * h].contiguous()
+        p["W_h"] = p["W_h"][:h].contiguous()
+    x = torch.randn((B, S, 2), generator=g).cuda()
+    H = (0.9 * torch.tanh(torch.randn((B, S, h), generator=g))).to(
+        "cuda", hc)
+    C = torch.randn((B, S, h), generator=g).to("cuda", hc)
+    return [p[k] for k in lc.CELL_KEYS], x, H, C
+
+
+def phase_cell(params, report):
+    """(a): the bf16-gate cell kernel against its plain version."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds
+    from iadmm_tpu_torch.kernels import lstm_cell as lc
     g = torch.Generator().manual_seed(11)
     for B, S, h, hc in ((SERVE_BATCH, N_VAR + N_INEQ + N_EQ, HIDDEN,
                          torch.bfloat16),
                         (2, 37, 20, torch.float32)):
-        if h == HIDDEN:
-            p = dict(params)
-            p["U"] = params["U"] * 5.0   # gates of order 1
-        else:
-            p = {k: (0.05 * torch.randn(v.shape, generator=g)).cuda()
-                 for k, v in params.items()}
-            p["U"] = p["U"][:h, :4 * h].contiguous()
-            p["W"] = p["W"][:, :4 * h].contiguous()
-            p["b"] = p["b"][:4 * h].contiguous()
-            p["W_h"] = p["W_h"][:h].contiguous()
-        keys = [p[k].to(torch.bfloat16) if k in ("W", "U", "W_h")
-                else p[k] for k in lc.CELL_KEYS]
-        x = torch.randn((B, S, 2), generator=g).cuda()
-        H = (0.9 * torch.tanh(torch.randn((B, S, h), generator=g))).to(
-            "cuda", hc)
-        C = torch.randn((B, S, h), generator=g).to("cuda", hc)
+        keys, x, H, C = cell_case(params, B, S, h, hc, g)
+        keys = [k.to(torch.bfloat16) if i in (0, 1, 3) else k
+                for i, k in enumerate(keys)]
         before = lc.fused_lstm_cell.launches
         out = lc.cell_forward(*keys, x, H, C, "bfloat16")
         torch.cuda.synchronize()
@@ -240,11 +286,7 @@ def phase_cell(params, report):
         p_ms = cuda_ms(lambda: lc.cell_plain(*keys, x, H, C, "bfloat16"),
                        reps=3)
         M = B * S
-        hb = 2 if hc == torch.bfloat16 else 4
-        nbytes = (M * 2 * 4 + 4 * M * h * hb + M * 4
-                  + (2 * 4 * h + h * 4 * h + h) * 2 + 4 * h * 4 + 4)
-        b_ms, b_by = bound_ms(nbytes, bf16_ops=2.0 * M * h * 4 * h,
-                              f32_ops=2.0 * M * 2 * 4 * h + 20.0 * M * h)
+        b_ms, b_by = bounds.cell(M, h, "bfloat16", H.element_size())
         row = dict(shape=dict(B=B, S=S, h=h, state=str(hc)),
                    max_abs_err=max_abs, max_rel_err=max_rel,
                    tol="delta: 1e-3 + 1e-2|ref|; H', C': 1e-5 + 2^-7|ref| "
@@ -261,6 +303,62 @@ def phase_cell(params, report):
                                    "of the cell")
             report["cell"] = row
         say("a cell", **row)
+
+
+def phase_cell_f32(params, report):
+    """(k): the float32-gate cell kernel against its plain version, at the
+    flagship shape with float32 and with bf16 H/C, and a ragged case."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds
+    from iadmm_tpu_torch.kernels import lstm_cell as lc
+    g = torch.Generator().manual_seed(13)
+    S0 = N_VAR + N_INEQ + N_EQ
+    rows = []
+    for B, S, h, hc in ((SERVE_BATCH, S0, HIDDEN, torch.float32),
+                        (SERVE_BATCH, S0, HIDDEN, torch.bfloat16),
+                        (2, 37, 20, torch.float32)):
+        keys, x, H, C = cell_case(params, B, S, h, hc, g)
+
+        def kernel():
+            return lc.cell_forward(*keys, x, H, C, "float32")
+
+        before = lc.fused_lstm_cell.launches_f32
+        out = kernel()
+        torch.cuda.synchronize()
+        if lc.fused_lstm_cell.launches_f32 != before + 1:
+            raise PhaseError("k cell: wrapper did not launch the kernel")
+        ref = lc.cell_plain(*keys, x, H, C, "float32")
+        # a bf16 H'/C' may round the same float32 value the other way
+        ulp = 2 ** -7 if hc == torch.bfloat16 else 0.0
+        errs = [compare(f"k cell {nm}", a, b,
+                        F32_CELL_TOL * float(b.float().abs().max()),
+                        ulp if nm != "delta" else 0.0)
+                for nm, a, b in zip(("delta", "H'", "C'"), out, ref)]
+        if not all(torch.equal(a, b) for a, b in zip(out, kernel())):
+            raise PhaseError("k cell: two calls gave different outputs")
+        M = B * S
+        b_ms, b_by = bounds.cell(M, h, "float32", H.element_size())
+        row = dict(shape=dict(B=B, S=S, h=h, state=str(hc)),
+                   max_abs_err=max(e[0] for e in errs),
+                   max_rel_err=max(e[1] for e in errs),
+                   tol=(f"delta, H', C': {F32_CELL_TOL:g}·max|ref| (+ "
+                        f"2^-7|ref|, one bf16 ulp, on a bf16 H'/C')"),
+                   bitwise_repeat=True, bound_ms=b_ms, bound_by=b_by,
+                   launches=1)
+        if h == HIDDEN:
+            H2 = H.reshape(M, h).float()
+            row.update(
+                kernel_ms=cuda_ms(kernel, reps=10),
+                plain_ms=cuda_ms(lambda: lc.cell_plain(*keys, x, H, C,
+                                                       "float32"), reps=3),
+                library_ms=cuda_ms(lambda: torch.matmul(H2, keys[1]),
+                                   reps=10),
+                library_note=("torch.matmul of the H·U GEMM alone in "
+                              "float32, TF32 off: a yardstick of the GEMM, "
+                              "not of the cell"))
+        say("k cell float32", **row)
+        rows.append(row)
+    report["cell_f32"] = dict(rows[0], cases=rows)
 
 
 def permute_hidden(params, perm):
@@ -396,25 +494,74 @@ def phase_stage2(params, data, sc, xyz, report):
     report["stage2"] = row
 
 
-def counters():
+def _counted():
+    """{name: (wrapper, attribute)} of every launch counter."""
     from iadmm_tpu_torch.kernels import lstm_cell, rollout_kernel, \
-        stage2_kernel
-    return (lstm_cell.fused_lstm_cell, rollout_kernel.fused_rollout,
-            stage2_kernel.fused_stage2)
+        sparse_matvec, stage2_kernel, train_rollout as tr
+    cell = lstm_cell.fused_lstm_cell
+    return dict(cell=(cell, "launches"), cell_f32=(cell, "launches_f32"),
+                rollout=(rollout_kernel.fused_rollout, "launches"),
+                stage2=(stage2_kernel.fused_stage2, "launches"),
+                train_fwd=(tr.train_fwd_cuda, "launches"),
+                train_fwd_f32=(tr.train_fwd_cuda, "launches_f32"),
+                train_bwd=(tr.train_bwd_cuda, "launches"),
+                train_bwd_f32=(tr.train_bwd_cuda, "launches_f32"),
+                bsr=(sparse_matvec.bsr_matvec, "launches"))
 
 
-def phase_serve(tag, params, rollout_impl, requests, report):
-    """Answer the requests; check each residual against the 'lu' route."""
+def zero_counts():
+    """Every kernel's launch count to 0, just before a main path."""
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
+
+
+def launch_counts():
+    """{kernel: launches since zero_counts()}."""
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
+
+
+def lu64_polish(params, data, start):
+    """Primal residuals after the LU Stage II in float64 from the float32
+    pipeline's pre-polish iterates ``start`` (a SolveResult)."""
+    import dataclasses
+    import torch
+    from iadmm_tpu_torch.evaluation import metrics
+    from iadmm_tpu_torch.solvers.exact import feasibility_restoration
+    from iadmm_tpu_torch.solvers.step import _schedules
+    from iadmm_tpu_torch.types import IterState
+    f64 = torch.float64
+    d64 = dataclasses.replace(data, **{
+        f.name: v.to(f64) for f in dataclasses.fields(data)
+        if isinstance(v := getattr(data, f.name), torch.Tensor)
+        and v.is_floating_point()})
+    rho, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
+    x, y, z = (getattr(start, k).to(f64) for k in "xyz")
+    st = IterState(x=x, y=y, z=z, xv=torch.cat([x, y], -1),
+                   H=x.new_zeros((data.batch, 1, 1)),
+                   C=x.new_zeros((data.batch, 1, 1)))
+    st = feasibility_restoration(st, d64, SIGMA, rho.to(f64), POLISH_STEPS)
+    pr, _ = metrics.primal_dual_residual(st.x, st.y, st.z, d64.Q, d64.p,
+                                         d64.A0, "default")
+    return pr
+
+
+def phase_serve(tag, params, requests, report, need, lu64=False,
+                **profile):
+    """Answer the requests with ``make_solver(params, **profile)`` (the
+    flagship's K, h and polish steps); check each residual against the
+    'lu' Stage-II route and the polish against no polish.  ``need``: the
+    kernels the route must launch.  ``lu64``: where the fused Stage II is
+    more than 1e-4 + 1e-2·|LU| from the float32 LU route, hold it instead
+    to the float64 LU polish from the same iterates, within
+    MAX_GAP_OVER_ROUNDING x the float32 LU route's own gap to it (both
+    float32 routes' errors grow with the pre-polish iterates and the
+    conditioning of the KKT matrix)."""
     import torch
     from iadmm_tpu_torch.api import make_solver
-    kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS, sigma=SIGMA,
-              feas_rest_num=POLISH_STEPS, use_pallas=True,
-              gate_dtype="bfloat16", matvec_mode="bf16",
-              rollout_impl=rollout_impl)
-    solve = make_solver(params, stage2_impl="fused", **kw)
-    cell, roll, s2 = counters()
-    for c in (cell, roll, s2):   # main path: counted from 0
-        c.launches = 0
+    kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
+              feas_rest_num=POLISH_STEPS, **profile)
+    solve = make_solver(params, **kw)
+    zero_counts()   # main path: counted from 0
     times, prs = [], []
     for data in requests:
         torch.cuda.synchronize()
@@ -426,31 +573,41 @@ def phase_serve(tag, params, rollout_impl, requests, report):
             if not bool(getattr(res, f).isfinite().all()):
                 raise PhaseError(f"{tag}: non-finite {f}")
         prs.append(res.primal_res)
-    delta = dict(cell=cell.launches, rollout=roll.launches,
-                 stage2=s2.launches)
+    delta = launch_counts()
     # References on request 0: the same pipeline with the LU Stage II
     # (torch.linalg), and without Stage II.
-    lu = make_solver(params, stage2_impl="lu", **kw)(requests[0])
+    lu = make_solver(params, **dict(kw, stage2_impl="lu"))(requests[0])
     kw0 = dict(kw, feas_rest_num=0)
-    pr_before = make_solver(params, **kw0)(requests[0]).primal_res
+    start = make_solver(params, **kw0)(requests[0])
+    pr_before = start.primal_res
     pr_fused = prs[0]
     pr_lu = lu.primal_res
     gap = float(((pr_fused - pr_lu).abs() - 1e-2 * pr_lu.abs()).max())
     ratio = float((pr_fused / pr_before).max())
-    row = dict(rollout_impl=rollout_impl, batch=int(requests[0].batch),
-               ms_per_solve=times, launches=delta,
+    gap64 = None
+    if lu64:
+        pr64 = lu64_polish(params, requests[0], start)
+        own = (pr_lu.double() - pr64).abs()
+        gap64 = float(((pr_fused.double() - pr64).abs()
+                       - MAX_GAP_OVER_ROUNDING * own
+                       - 1e-2 * pr64.abs()).max())
+    row = dict(profile={k: v for k, v in profile.items() if k != "sigma"},
+               batch=int(requests[0].batch), ms_per_solve=times,
+               launches={k: v for k, v in delta.items() if v},
                final_primal_res_max=float(torch.stack(prs).max()),
                primal_res_req0=[float(v) for v in pr_fused],
                primal_res_req0_lu=[float(v) for v in pr_lu],
                primal_res_req0_before_stage2=[float(v) for v in pr_before],
                max_ratio_after_over_before=ratio,
                gap_to_lu_minus_1e2_rel=gap)
+    if lu64:
+        row.update(primal_res_req0_lu_float64=[float(v) for v in pr64],
+                   gap_to_lu64_minus_own_and_1e2_rel=gap64)
     say(tag, **row)
-    need = ["stage2", "rollout" if rollout_impl == "fused" else "cell"]
     for k in need:
         if delta[k] <= 0:
             raise PhaseError(f"{tag}: the {k} kernel was not launched")
-    if gap > 1e-4:
+    if gap > 1e-4 and not (lu64 and gap64 <= 1e-4):
         raise PhaseError(f"{tag}: primal residual differs from the LU "
                          f"route by more than 1e-4 + 1e-2·|LU|")
     # Threshold: the polish steps must bring every instance's primal
@@ -585,23 +742,46 @@ def device_time_by_kernel(fn, top=12):
     return dict(rows[:top]), sum(r["ms"] for r in agg.values())
 
 
-def phase_train_kernels(params, data, report):
-    """(f): the training kernels against their plain versions."""
+# The training kernels' phases: (f) the fast profile, (l) the float32 one.
+# fwd: (atol over max|ref|, rtol) of each forward output at J=6; leaf: each
+# gradient leaf's gap at J=6; leaf_j100: the backward on the plain streams
+# at J=100, per leaf.  f64: the J=6 limits of (l) widen to
+# MAX_GAP_OVER_ROUNDING x the plain pair's own gap to its float64 run where
+# that is larger: y copies ν (y' = ν + ρ(z − zl) on the equality rows), and
+# the KKT feature that moves ν subtracts terms scaled by 1/ρ and ρ_eq, so a
+# float32 summation order shows there at the 1e-4 level after 6 steps.
+TRAIN_PROFILES = {
+    "bfloat16": dict(tag="f train kernels", key="train_kernels",
+                     fwd=(1e-2, 2e-2), leaf=MAX_LEAF_GAP,
+                     leaf_j100=MAX_LEAF_GAP_J100, f64=False),
+    "float32": dict(tag="l train kernels float32", key="train_kernels_f32",
+                    fwd=(F32_LEAF_TOL, 0.0), leaf=F32_LEAF_TOL,
+                    leaf_j100=F32_LEAF_TOL, f64=True),
+}
+FWD_OUTPUTS = ("pr", "dr", "x", "y", "z", "xv", "H", "C")
+
+
+def phase_train_kernels(params, data, report, cdt="bfloat16"):
+    """(f), (l): the training kernels against their plain versions at
+    compute dtype ``cdt``."""
     import torch
+    from iadmm_tpu_torch.kernels import bounds
     from iadmm_tpu_torch.kernels import train_rollout as tr
-    from iadmm_tpu_torch.kernels.bounds import bound_ms
+    prof = TRAIN_PROFILES[cdt]
+    counter = "launches" if cdt == "bfloat16" else "launches_f32"
     weights, state, dd = train_inputs(params, data)
     B, n = data.p.shape
     m = data.num_constr
     S, h, M = n + m, HIDDEN, B * (n + m)
     torch.cuda.reset_peak_memory_stats()
 
-    def run(fwd, bwd, w, J):
-        kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
-        pr, dr, final, streams = fwd(w, state, dd, **kw)
-        d = torch.full((B, J), 1.0 / (B * K_ITERS), device=DEV)
-        grads, _ = bwd(w, dd, streams, tuple(torch.zeros_like(f)
-                                             for f in final), d, d, **kw)
+    def run(fwd, bwd, w, J, st=state, data=dd):
+        kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype=cdt)
+        pr, dr, final, streams = fwd(w, st, data, **kw)
+        d = torch.full((B, J), 1.0 / (B * K_ITERS), device=DEV,
+                       dtype=pr.dtype)
+        grads, _ = bwd(w, data, streams, tuple(torch.zeros_like(f)
+                                               for f in final), d, d, **kw)
         return pr, dr, final, streams, grads, d
 
     kernel = (tr.train_fwd_cuda, tr.train_bwd_cuda)
@@ -609,27 +789,43 @@ def phase_train_kernels(params, data, report):
     # J = K_CHECK: the forward outputs; every gradient leaf, from the
     # backward kernel on the plain forward's streams and end to end
     J = K_CHECK
-    f0, b0 = tr.train_fwd_cuda.launches, tr.train_bwd_cuda.launches
+    f0 = getattr(tr.train_fwd_cuda, counter)
+    b0 = getattr(tr.train_bwd_cuda, counter)
     kpr, kdr, kfin, kstr, kg, d = run(*kernel, weights, J)
     torch.cuda.synchronize()
-    if (tr.train_fwd_cuda.launches != f0 + J
-            or tr.train_bwd_cuda.launches != b0 + J):
-        raise PhaseError("train: the wrappers did not launch J steps")
+    if (getattr(tr.train_fwd_cuda, counter) != f0 + J
+            or getattr(tr.train_bwd_cuda, counter) != b0 + J):
+        raise PhaseError(f"{prof['tag']}: the wrappers did not launch J "
+                         f"steps")
     ppr, pdr, pfin, pstr, pg, _ = run(*plain, weights, J)
-    errs = [compare(f"train fwd {nm}", a, b, 1e-2 * float(b.abs().max()),
-                    2e-2) for nm, a, b in zip(
-                        ("pr", "dr", "x", "y", "z", "xv", "H", "C"),
-                        (kpr, kdr, *kfin), (ppr, pdr, *pfin))]
-    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
+    fa, fr = prof["fwd"]
+    own64 = dict(fwd=[0.0] * len(FWD_OUTPUTS), grads=[0.0] * len(GRAD_KEYS))
+    if prof["f64"]:   # the plain pair's own float32 error, against float64
+        f64 = torch.float64
+        qpr, qdr, qfin, _, qg, _ = run(
+            *plain, tuple(t.to(f64) for t in weights), J,
+            tuple(t.to(f64) for t in state), tuple(t.to(f64) for t in dd))
+        own64 = dict(fwd=leaf_gaps((ppr, pdr, *pfin), (qpr, qdr, *qfin)),
+                     grads=leaf_gaps(pg, qg))
+        del qfin, qg
+    errs = [compare(f"train fwd {nm}", a, b, max(
+                fa, MAX_GAP_OVER_ROUNDING * own) * float(b.abs().max()), fr)
+            for nm, a, b, own in zip(FWD_OUTPUTS, (kpr, kdr, *kfin),
+                                     (ppr, pdr, *pfin), own64["fwd"])]
+    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype=cdt)
     zero = tuple(torch.zeros_like(f) for f in kfin)
     ks_g, _ = tr.train_bwd_cuda(weights, dd, pstr, zero, d, d, **kw)
     same = leaf_gaps(ks_g, pg)
     e2e = leaf_gaps(kg, pg)
-    for what, gaps in (("on the plain streams", same), ("end to end", e2e)):
-        for k, gap in zip(GRAD_KEYS, gaps):
-            if not gap <= MAX_LEAF_GAP:
-                raise PhaseError(f"train bwd {what}: grad[{k}] gap "
-                                 f"{gap:.3e} > {MAX_LEAF_GAP}")
+    for k, gap in zip(GRAD_KEYS, same):
+        if not gap <= prof["leaf"]:
+            raise PhaseError(f"train bwd on the plain streams: grad[{k}] gap "
+                             f"{gap:.3e} > {prof['leaf']}")
+    for k, gap, own in zip(GRAD_KEYS, e2e, own64["grads"]):
+        lim = max(prof["leaf"], MAX_GAP_OVER_ROUNDING * own)
+        if not gap <= lim:
+            raise PhaseError(f"train bwd end to end: grad[{k}] gap "
+                             f"{gap:.3e} > {lim:.3e}")
     del kstr, pstr
     grad_abs = max(float((a.reshape(b.shape) - b).abs().max())
                    for a, b in zip(kg, pg))
@@ -638,7 +834,7 @@ def phase_train_kernels(params, data, report):
     # order to the next (by up to 5x on the losses at J=100), so the
     # yardstick of a leaf is its largest gap under PERMUTATIONS orders.
     J = K_ITERS
-    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
+    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype=cdt)
     kpr, kdr, kfin, kstr, kg, d = run(*kernel, weights, J)
     ppr, pdr, pfin, pstr, pg, _ = run(*plain, weights, J)
     zero = tuple(torch.zeros_like(f) for f in kfin)
@@ -648,9 +844,10 @@ def phase_train_kernels(params, data, report):
     same_j = leaf_gaps(ks_g, pg)
     del pstr, ks_g
     for k, gap in zip(GRAD_KEYS, same_j):
-        if not gap <= MAX_LEAF_GAP_J100:
+        if not gap <= prof["leaf_j100"]:
             raise PhaseError(f"train bwd on the plain streams, J={J}: "
-                             f"grad[{k}] gap {gap:.3e} > {MAX_LEAF_GAP_J100}")
+                             f"grad[{k}] gap {gap:.3e} > "
+                             f"{prof['leaf_j100']}")
     ref_out = (ppr, pdr, *pfin[:4], *pg)
     gap_k = leaf_gaps((kpr, kdr, *kfin[:4], *kg), ref_out)
     gap_p = [0.0] * len(gap_k)
@@ -686,39 +883,43 @@ def phase_train_kernels(params, data, report):
     del pstr
     breakdown, _ = device_time_by_kernel(
         lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw))
+    # library yardsticks: one step's GEMMs in the compute dtype, J times
+    wdt = kstr[0].dtype
     Hk = kstr[0][0].reshape(M, h)
-    Ub = params["U"].to(torch.bfloat16)
-    dpre = torch.randn((M, 4 * h), device=DEV).to(torch.bfloat16)
-    lib_step = cuda_ms(lambda: (torch.matmul(Hk, Ub),
-                                torch.matmul(dpre, Ub.T),
+    Uc = params["U"].to(wdt)
+    dpre = torch.randn((M, 4 * h), device=DEV).to(wdt)
+    lib_fwd = cuda_ms(lambda: torch.matmul(Hk, Uc), reps=10)
+    lib_step = cuda_ms(lambda: (torch.matmul(Hk, Uc),
+                                torch.matmul(dpre, Uc.T),
                                 torch.matmul(Hk.T, dpre)), reps=10)
     peak = torch.cuda.max_memory_allocated()
-    data_bytes = (B * (n * n + m * n) * 2 + B * (n + 3 * m) * 4
-                  + (2 * 4 * h + h * 4 * h + h) * 2 + (4 * h + 1) * 4
-                  + 2 * K_ITERS * 4)
-    stream_bytes = J * B * S * h * 6
-    mv_ops = 2.0 * B * (n * n + 2 * m * n)
-    gemm_ops = 2.0 * M * h * 4 * h
-    fb, fby = bound_ms(stream_bytes + data_bytes + B * J * 8,
-                       bf16_ops=J * (gemm_ops + 3 * mv_ops),
-                       f32_ops=J * M * (2.0 * 2 * 4 * h + 20.0 * h))
-    bb, bby = bound_ms(stream_bytes + data_bytes
-                       + (2 * 4 * h + h * 4 * h + 5 * h + 1 + 2 * J) * 4,
-                       bf16_ops=J * (3 * gemm_ops + 6 * mv_ops),
-                       f32_ops=J * M * (4.0 * 2 * 4 * h + 40.0 * h))
+    fb, fby = bounds.train_fwd(B, J, n, m, h, K_ITERS, cdt)
+    bb, bby = bounds.train_bwd(B, J, n, m, h, K_ITERS, cdt)
     row = dict(shape=dict(B=B, n=n, m=m, h=h, J_check=K_CHECK, J=J),
+               compute_dtype=cdt,
                max_abs_err_fwd=max(e[0] for e in errs),
                max_rel_err_fwd=max(e[1] for e in errs),
                max_abs_err_grad=grad_abs,
-               tol=("fwd: 1e-2·max|ref| + 2e-2|ref| per output at J=6; "
-                    "grads at J=6: per-leaf max|Δ|/max|ref| <= 2e-2, bwd on "
-                    "the plain streams and end to end; J=100: bwd on the "
-                    "plain streams per leaf <= 2e-3, and per leaf "
-                    "(losses, final x, y, z, xv, each gradient) gap <= 4x "
-                    "that leaf's largest plain-pair gap under "
-                    f"{len(PERMUTATIONS)} hidden-unit permutations"),
+               tol=(f"fwd: {fa:g}·max|ref| + {fr:g}|ref| per output at J=6; "
+                    f"grads at J=6: per-leaf max|Δ|/max|ref| <= "
+                    f"{prof['leaf']:g}, bwd on the plain streams and end to "
+                    f"end" + (f" (at J=6 the fwd and end-to-end limits "
+                              f"widen to {MAX_GAP_OVER_ROUNDING:g}x the plain "
+                              f"pair's own gap to its float64 run where "
+                              f"larger)" if prof["f64"] else "")
+                    + f"; J=100: bwd on the plain streams per leaf <= "
+                    f"{prof['leaf_j100']:g}, and per leaf (losses, final x, "
+                    f"y, z, xv, each gradient) gap <= 4x that leaf's largest "
+                    f"plain-pair gap under {len(PERMUTATIONS)} hidden-unit "
+                    f"permutations"),
+               fwd_rel_gap=dict(zip(FWD_OUTPUTS, (e[1] for e in errs))),
                grad_gap_same_streams=dict(zip(GRAD_KEYS, same)),
                grad_gap_end_to_end=dict(zip(GRAD_KEYS, e2e)),
+               **({} if not prof["f64"] else dict(
+                   plain_vs_float64_fwd_gap=dict(zip(FWD_OUTPUTS,
+                                                     own64["fwd"])),
+                   plain_vs_float64_grad_gap=dict(zip(GRAD_KEYS,
+                                                      own64["grads"])))),
                grad_gap_same_streams_at_J100=dict(zip(GRAD_KEYS, same_j)),
                rel_gap_at_J100=dict(zip(J100_LEAVES, gap_k)),
                plain_vs_permuted_plain_rel_gap_at_J100=dict(
@@ -727,20 +928,15 @@ def phase_train_kernels(params, data, report):
                fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
                bwd_plain_ms=bwd_plain_ms, fwd_bound_ms=fb, fwd_bound_by=fby,
                bwd_bound_ms=bb, bwd_bound_by=bby,
-               bwd_library_ms=J * lib_step,
-               library_note=("J x torch.matmul of one step's three bf16 "
-                             "GEMMs (H_k·U, dpre·Uᵀ, H_kᵀ·dpre): a yardstick "
-                             "of the GEMMs, not of the backward"),
+               fwd_library_ms=J * lib_fwd, bwd_library_ms=J * lib_step,
+               library_note=(f"J x torch.matmul in {cdt} (TF32 off) of one "
+                             f"step's GEMMs: H_k·U (fwd); H_k·U, dpre·Uᵀ, "
+                             f"H_kᵀ·dpre (bwd): a yardstick of the GEMMs, "
+                             f"not of the kernels"),
                max_memory_allocated_bytes=peak,
                bwd_device_ms_by_kernel=breakdown)
-    say("f train kernels", **row)
-    report["train_kernels"] = row
-
-
-def train_counters():
-    from iadmm_tpu_torch.kernels import lstm_cell, train_rollout
-    return (lstm_cell.fused_lstm_cell, train_rollout.train_fwd_cuda,
-            train_rollout.train_bwd_cuda)
+    say(prof["tag"], **row)
+    report[prof["key"]] = row
 
 
 def phase_train(report):
@@ -769,17 +965,14 @@ def phase_train(report):
         matvec_mode="bf16", train_backend="fused", save_dir=TRAIN_DIR))
     p0 = lstm_init(torch.Generator().manual_seed(cfg.seed), 2, HIDDEN,
                    K_ITERS, device=DEV)
-    counters = train_counters()
-    for c in counters:   # the training path, counted from 0
-        c.launches = 0
+    zero_counts()   # the training path, counted from 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = train(cfg, ds, verbose=True, device=DEV)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(cell=counters[0].launches, train_fwd=counters[1].launches,
-                    train_bwd=counters[2].launches)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_batches = int(TRAIN_DATA * (1 - cfg.val_frac)) // TRAIN_BATCH
     chunks = TRAIN_EPOCHS * n_batches * (cfg.outer_T // cfg.truncated_length)
@@ -811,7 +1004,8 @@ def phase_train(report):
                epochs=[{k: h[k] for k in ("epoch", "train_loss", "val_obj",
                                           "train_time", "val_time")}
                        for h in res.history],
-               chunks=chunks, launches=launches,
+               chunks=chunks,
+               launches={k: v for k, v in launches.items() if v},
                max_param_change=moved, checkpoint=os.path.relpath(
                    res.checkpoint_path, ROOT),
                served_primal_res_max=float(out.primal_res.max()),
@@ -822,8 +1016,9 @@ def phase_train(report):
     return launches
 
 
-def phase_step_vs_fused(params, data, report):
-    """(h): one chunk update on each backend from the same params."""
+def phase_step_vs_fused(params, data, report, cdt="bfloat16"):
+    """(h), (m): one chunk update on each backend from the same params, at
+    the fast profile (bf16) or the float32 one."""
     import torch
     from iadmm_tpu_torch.kernels import lstm_cell
     from iadmm_tpu_torch.kernels.train_rollout import make_fused_chunk_loss
@@ -834,12 +1029,14 @@ def phase_step_vs_fused(params, data, report):
     from iadmm_tpu_torch.types import init_state
     B, n = data.p.shape
     m = data.num_constr
-    step_fn = make_lstm_step(use_pallas=True, gate_dtype="bfloat16",
-                             matvec_mode="bf16")
+    fast = cdt == "bfloat16"
+    step_fn = make_lstm_step(use_pallas=True, gate_dtype=cdt,
+                             matvec_mode="bf16" if fast else None)
     fused = make_fused_chunk_loss(num_var=n, num_constr=m, batch=B,
                                   hidden=HIDDEN, sigma=SIGMA,
                                   chunk_len=K_ITERS, outer_T=K_ITERS,
-                                  K_total=K_ITERS)
+                                  K_total=K_ITERS, compute_dtype=cdt)
+    cell = "launches" if fast else "launches_f32"
 
     def step_loss(p, st, dat, t0):
         return chunk_loss(step_fn, p, st, dat, SIGMA, K_ITERS, K_ITERS, t0)
@@ -854,7 +1051,7 @@ def phase_step_vs_fused(params, data, report):
         grads = [p[k].grad.detach().clone() for k in GRAD_KEYS]
         body = make_train_chunk(None, make_optimizer(p, 5e-5), K_ITERS,
                                 K_ITERS, SIGMA, loss_fn=loss_fn)
-        before = lstm_cell.fused_lstm_cell.launches
+        before = getattr(lstm_cell.fused_lstm_cell, cell)
         times = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -863,11 +1060,11 @@ def phase_step_vs_fused(params, data, report):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         rows[name] = dict(loss=float(loss.detach()), grads=grads, ms=times,
-                          cell_launches=(lstm_cell.fused_lstm_cell.launches
-                                         - before) // 2)
+                          cell_launches=(getattr(lstm_cell.fused_lstm_cell,
+                                                 cell) - before) // 2)
     gaps = leaf_gaps(rows["step"]["grads"], rows["fused"]["grads"])
     ms = {k: min(r["ms"]) for k, r in rows.items()}
-    row = dict(batch=B, J=K_ITERS,
+    row = dict(batch=B, J=K_ITERS, profile=cdt,
                chunk_update_ms={k: r["ms"] for k, r in rows.items()},
                instance_iters_per_s={k: B * K_ITERS / (v / 1e3)
                                      for k, v in ms.items()},
@@ -880,16 +1077,19 @@ def phase_step_vs_fused(params, data, report):
                note=("the step route's loss uses float32 residual matvecs "
                      "and float32 H/C carries through the cell, the fused "
                      "route bf16 residual matvecs and a bf16 H stream, so "
-                     "b and b_h (cancelling sums) differ by about 3%"))
-    say("h step vs fused", **row)
+                     "b and b_h (cancelling sums) differ by about 3%"
+                     if fast else "both routes compute the same float32 "
+                     "function in other summation orders"))
+    tag = "h step vs fused" if fast else "m step vs fused float32"
+    say(tag, **row)
     if not row["loss_rel_gap"] <= MAX_LOSS_GAP:
-        raise PhaseError(f"h: the two backends' chunk losses differ by "
-                         f"{row['loss_rel_gap']:.3e} > {MAX_LOSS_GAP}")
+        raise PhaseError(f"{tag}: the two backends' chunk losses differ "
+                         f"by {row['loss_rel_gap']:.3e} > {MAX_LOSS_GAP}")
     for k, gap in zip(GRAD_KEYS, gaps):
         if not gap <= MAX_STEP_GRAD_GAP:
-            raise PhaseError(f"h: grad[{k}] differs between the backends by "
-                             f"{gap:.3e} > {MAX_STEP_GRAD_GAP}")
-    report["step_vs_fused"] = row
+            raise PhaseError(f"{tag}: grad[{k}] differs between the backends "
+                             f"by {gap:.3e} > {MAX_STEP_GRAD_GAP}")
+    report["step_vs_fused" if fast else "step_vs_fused_f32"] = row
 
 
 def sparse_dataset():
@@ -1098,8 +1298,7 @@ def phase_sparse(ds, gen_s, report):
     p0 = lstm_init(torch.Generator().manual_seed(cfg.seed), 2, SP_H, SP_K,
                    device=DEV)
     bsr_c, cell_c = tsm.bsr_matvec, lstm_cell.fused_lstm_cell
-    for c in (bsr_c, cell_c):   # the sparse path, counted from 0
-        c.launches = 0
+    zero_counts()   # the sparse path, counted from 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1220,6 +1419,181 @@ def phase_sparse(ds, gen_s, report):
     return launches
 
 
+def run_cli(module, args, log_name):
+    """``module.main(args)`` in this process (the CLI's entry point), its
+    standard output kept in OUT_DIR/log_name and returned."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(args)
+    text = buf.getvalue()
+    with open(os.path.join(OUT_DIR, log_name), "w") as f:
+        f.write(text)
+    if rc != 0:
+        raise PhaseError(f"{module.__name__} {args}: exit code {rc}")
+    return text
+
+
+def phase_flagship(report):
+    """(m): configs/qp_1000_500_500.yaml, unmodified, through the CLIs.
+    Returns the launches of the three CLI runs (the main path)."""
+    import re
+    import types
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.cli import test as cli_test, train as cli_train
+    from iadmm_tpu_torch.config import ExperimentConfig
+    from iadmm_tpu_torch.evaluation.driver import run_test
+    from iadmm_tpu_torch.problems import generate
+    from iadmm_tpu_torch.problems.io import dataset_path, load_dataset, \
+        save_npz
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    from iadmm_tpu_torch.train import checkpoint as ckpt
+    from iadmm_tpu_torch.utils.logging import RunLog
+    shutil.rmtree(FLAGSHIP_DIR, ignore_errors=True)
+    root = os.path.join(FLAGSHIP_DIR, "data")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ds = generate("QP", num_var=N_VAR, num_ineq=N_INEQ, num_eq=N_EQ,
+                  data_size=FLAGSHIP_DATA, seed=41)
+    save_npz(ds, dataset_path(root, "QP", N_VAR, N_INEQ, N_EQ))
+    gen_s = time.perf_counter() - t0
+    dirs = {k: os.path.join(FLAGSHIP_DIR, k) for k in ("step", "fused")}
+    traces_path = os.path.join(FLAGSHIP_DIR, "traces.npz")
+    common = ["--config", FLAGSHIP_CONFIG,
+              "--data_size", str(FLAGSHIP_DATA),
+              "--val_frac", str(FLAGSHIP_VAL),
+              "--test_frac", str(FLAGSHIP_TEST), "--data_root", root]
+    gate = ["--eq_tol", "1e9", "--ineq_tol", "1e9"]
+    times = {}
+    zero_counts()   # the shipped config's path, counted from 0
+    for name, args, log in (
+            ("train_step", common + gate + ["--num_epoch", str(TRAIN_EPOCHS),
+                                            "--save_dir", dirs["step"]],
+             "cli_train_step.txt"),
+            ("test", common + ["--save_dir", dirs["step"], "--feas_rest",
+                               "--export", traces_path], "cli_test.txt"),
+            ("train_fused", common + gate + ["--num_epoch", "1",
+                                             "--train_backend", "fused",
+                                             "--save_dir", dirs["fused"]],
+             "cli_train_fused.txt")):
+        module = cli_test if name == "test" else cli_train
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = run_cli(module, args, log)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        if name == "test":
+            test_text = text
+    launches = launch_counts()
+
+    over = dict(data_size=FLAGSHIP_DATA, val_frac=FLAGSHIP_VAL,
+                test_frac=FLAGSHIP_TEST, data_root=root, eq_tol=1e9,
+                ineq_tol=1e9)
+    cfg = ExperimentConfig.from_yaml(FLAGSHIP_CONFIG, save_dir=dirs["step"],
+                                     num_epoch=TRAIN_EPOCHS, **over)
+    epochs = {}
+    for name, d in dirs.items():
+        log = RunLog(os.path.join(d, cfg.model_name,
+                                  cfg.run_name() + ".log.jsonl")).read()
+        epochs[name] = [r for r in log if r["kind"] == "epoch"]
+        losses = [r["train_loss"] for r in epochs[name]]
+        want = TRAIN_EPOCHS if name == "step" else 1
+        if len(losses) != want or not all(np.isfinite(losses)):
+            raise PhaseError(f"m {name}: epoch losses {losses}")
+    n_train = int(FLAGSHIP_DATA * (1 - FLAGSHIP_VAL - FLAGSHIP_TEST))
+    chunks = n_train // cfg.batch_size
+    for k in ("train_fwd_f32", "train_bwd_f32"):
+        if launches[k] != chunks * cfg.truncated_length:
+            raise PhaseError(f"m: {k} launched {launches[k]} steps, "
+                             f"expected {chunks} chunks x "
+                             f"{cfg.truncated_length}")
+    for k in ("cell", "train_fwd", "train_bwd"):   # the bf16 kernels
+        if launches[k]:
+            raise PhaseError(f"m: the float32 profile launched {k}")
+    if launches["cell_f32"] <= 0:
+        raise PhaseError("m: the float32 cell kernel was not launched")
+    p0 = lstm_init(torch.Generator().manual_seed(cfg.seed), 2, HIDDEN,
+                   cfg.outer_T, device="cpu")
+    path = ckpt.checkpoint_path(dirs["step"], cfg.model_name, cfg.run_name())
+    params = ckpt.load_checkpoint(path)["params"]
+    moved = max(float(np.abs(np.asarray(params[k]) - p0[k].numpy()).max())
+                for k in p0)
+    if not moved > 0:
+        raise PhaseError("m: the parameters did not change")
+
+    # The CLI's traces against run_test on the plain float32 cell
+    # (use_pallas=False), itself with permuted hidden units as the yardstick
+    # of K=100.
+    tr = np.load(traces_path)
+    cli_rep = types.SimpleNamespace(
+        obj=tr["objs"], primal_res=tr["primal_res"],
+        dual_res=tr["dual_res"], ls_res=tr["ls_res"])
+    ds = load_dataset(root, "QP", N_VAR, N_INEQ, N_EQ, 0, FLAGSHIP_DATA)
+    plain_cfg = ExperimentConfig.from_yaml(FLAGSHIP_CONFIG, save_dir=dirs[
+        "step"], use_pallas=False, feas_rest=True, **over)
+    ref = run_test(plain_cfg, ds, params, verbose=False, device=DEV)
+    perm = torch.randperm(HIDDEN, generator=torch.Generator().manual_seed(3))
+    pp = permute_hidden({k: torch.as_tensor(v) for k, v in params.items()},
+                        perm)
+    own = run_test(plain_cfg, ds, {k: v.numpy() for k, v in pp.items()},
+                   verbose=False, device=DEV)
+    keys4 = ("obj", "primal_res", "dual_res", "ls_res")
+    keys3 = keys4[:3]
+    gap6 = trace_gap(cli_rep, ref, keys4, K_CHECK)
+    gap_k = trace_gap(cli_rep, ref, keys3)
+    own_k = trace_gap(own, ref, keys3)
+
+    def seconds(pattern):
+        found = re.search(pattern, test_text)
+        return float(found.group(1)) if found else None
+
+    row = dict(
+        config=("configs/qp_1000_500_500.yaml unmodified (use_pallas, float32 "
+                "gates, matvec_mode 'highest', train_backend 'step'); CLI "
+                f"overrides: data_size {FLAGSHIP_DATA}, val/test fractions "
+                f"{FLAGSHIP_VAL}/{FLAGSHIP_TEST}, num_epoch, eq/ineq_tol, "
+                "paths"),
+        dataset_s=gen_s, cli_s=times,
+        epochs={k: [{f: r[f] for f in ("epoch", "train_loss", "val_obj",
+                                         "train_time", "val_time")}
+                    for r in v] for k, v in epochs.items()},
+        fused_chunks=chunks,
+        launches={k: v for k, v in launches.items() if v},
+        max_param_change=moved,
+        parallel_s_per_instance=float(tr["time"]),
+        total_s=float(tr["total_time"]),
+        stage2_s=seconds(r"Stage II \(feasibility restoration\) \S+ "
+                         r"([0-9.eE+-]+)s"),
+        timing_line=next((ln.strip() for ln in test_text.splitlines()
+                          if "Parallel Time" in ln), None),
+        stage2_final_primal_res=float(tr["stage2_primal_res"][-1]),
+        gap_cli_vs_plain_cell_first6=gap6,
+        gap_cli_vs_plain_cell_K100=gap_k,
+        gap_plain_cell_vs_permuted_K100=own_k,
+        tol=(f"the CLI's run_test (float32 cell kernel) vs use_pallas=False "
+             f"(plain float32 cell): every trace to {F32_LEAF_TOL:g} of "
+             f"max|ref| over the first {K_CHECK} steps; obj/primal/dual over "
+             f"K={K_ITERS} to {MAX_GAP_OVER_ROUNDING:g}x the plain route's "
+             f"own gap under a hidden-unit permutation (at least "
+             f"{ROUTE_FLOOR_K:.3e})"))
+    say("m flagship CLIs", **row)
+    for k in keys4:
+        if not gap6[k] <= F32_LEAF_TOL:
+            raise PhaseError(f"m: {k} differs from the plain float32 cell "
+                             f"by {gap6[k]:.3e} in {K_CHECK} steps")
+    for k in keys3:
+        if not gap_k[k] <= max(MAX_GAP_OVER_ROUNDING * own_k[k],
+                               ROUTE_FLOOR_K):
+            raise PhaseError(f"m: {k} gap {gap_k[k]:.3e} over K={K_ITERS} "
+                             f"exceeds {MAX_GAP_OVER_ROUNDING}x the plain "
+                             f"route's own {own_k[k]:.3e}")
+    report["flagship"] = row
+    shutil.rmtree(FLAGSHIP_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -1259,7 +1633,8 @@ def main() -> int:
 
     params = lstm_init(torch.Generator().manual_seed(0), 2, HIDDEN,
                        K_ITERS, device="cuda")
-    report = {}
+    report = dict(setup=dict(torch=torch.__version__, cuda=torch.version.cuda,
+                             build_s=build_s))
     phase_cell(params, report)
     data_b = qp_batch(SERVE_BATCH, seed=1)  # the serving batch
     _, sc, xyz = phase_rollout(params, data_b, report)
@@ -1267,9 +1642,13 @@ def main() -> int:
     small_reference_check()
 
     requests = [qp_batch(SERVE_BATCH, seed=100 + r) for r in range(3)]
-    d = phase_serve("d serve fused", params, "fused", requests, report)
+    fast = dict(sigma=SIGMA, use_pallas=True, gate_dtype="bfloat16",
+                matvec_mode="bf16", stage2_impl="fused")
+    d = phase_serve("d serve fused", params, requests, report,
+                    ("stage2", "rollout"), rollout_impl="fused", **fast)
     report["breakdown"] = serve_breakdown(params, requests[1])
-    e = phase_serve("e serve step", params, "step", requests, report)
+    e = phase_serve("e serve step", params, requests, report,
+                    ("stage2", "cell"), rollout_impl="step", **fast)
     # Main path: the requests of (d) and (e), each counted from 0 just
     # before and read just after; reference solves come after the reading.
     cell_all, roll_all, s2_all = (d[k] + e[k]
@@ -1292,6 +1671,26 @@ def main() -> int:
     j = phase_sparse(ds_sp, gen_s, report)
     cell_all += j["cell"]
     say("sparse path launches", **j)
+    del ds_sp
+    torch.cuda.empty_cache()
+
+    # The float32 profile of configs/qp_1000_500_500.yaml
+    phase_cell_f32(params, report)                                   # (k)
+    data_t = qp_batch(TRAIN_BATCH, seed=2)
+    scaled_t, _ = scale_batch(data_t)
+    phase_train_kernels(params, scaled_t, report, "float32")         # (l)
+    m = phase_flagship(report)                                       # (m)
+    say("shipped config path launches",
+        **{k: v for k, v in m.items() if v})
+    phase_step_vs_fused(params, scaled_t, report, "float32")
+    del data_t, scaled_t
+    requests = [qp_batch(SERVE_BATCH, seed=100 + r) for r in range(3)]
+    nf = phase_serve("n serve float32", params, requests, report,
+                     ("stage2", "cell_f32"), lu64=True,
+                     use_pallas=True)                                # (n)
+    s2_all += nf["stage2"]
+    say("float32 serving path launches", **{k: v for k, v in nf.items()
+                                             if v})
 
     def entry(name, src, replaces, key, launches):
         r = report[key]
@@ -1301,8 +1700,27 @@ def main() -> int:
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=r.get("library_ms"))
 
-    tk = report["train_kernels"]
     train_src = "iadmm_tpu_torch/kernels/csrc/train_{}.cu"
+
+    def train_entries(suffix, key, launches):
+        tk = report[key]
+        return [
+            dict(name="train_fwd" + suffix, route="cuda",
+                 source=train_src.format("fwd"),
+                 replaces="iadmm_tpu/kernels/train_rollout.py:256",
+                 launches=launches["train_fwd" + suffix],
+                 max_abs_err=tk["max_abs_err_fwd"], ms=tk["fwd_ms"],
+                 plain_ms=tk["fwd_plain_ms"], bound_ms=tk["fwd_bound_ms"],
+                 bound_by=tk["fwd_bound_by"],
+                 library_ms=tk["fwd_library_ms"]),
+            dict(name="train_bwd" + suffix, route="cuda",
+                 source=train_src.format("bwd"),
+                 replaces="iadmm_tpu/kernels/train_rollout.py:397",
+                 launches=launches["train_bwd" + suffix],
+                 max_abs_err=tk["max_abs_err_grad"], ms=tk["bwd_ms"],
+                 plain_ms=tk["bwd_plain_ms"], bound_ms=tk["bwd_bound_ms"],
+                 bound_by=tk["bwd_bound_by"],
+                 library_ms=tk["bwd_library_ms"])]
 
     kernels = [
         entry("lstm_cell", "iadmm_tpu_torch/kernels/csrc/lstm_cell.cu",
@@ -1311,18 +1729,7 @@ def main() -> int:
               "iadmm_tpu/kernels/rollout_kernel.py:56", "rollout", roll_all),
         entry("stage2_kkt", "iadmm_tpu_torch/kernels/csrc/stage2.cu",
               "iadmm_tpu/kernels/stage2_kernel.py:59", "stage2", s2_all),
-        dict(name="train_fwd", route="cuda", source=train_src.format("fwd"),
-             replaces="iadmm_tpu/kernels/train_rollout.py:256",
-             launches=g["train_fwd"], max_abs_err=tk["max_abs_err_fwd"],
-             ms=tk["fwd_ms"], plain_ms=tk["fwd_plain_ms"],
-             bound_ms=tk["fwd_bound_ms"], bound_by=tk["fwd_bound_by"],
-             library_ms=None),
-        dict(name="train_bwd", route="cuda", source=train_src.format("bwd"),
-             replaces="iadmm_tpu/kernels/train_rollout.py:397",
-             launches=g["train_bwd"], max_abs_err=tk["max_abs_err_grad"],
-             ms=tk["bwd_ms"], plain_ms=tk["bwd_plain_ms"],
-             bound_ms=tk["bwd_bound_ms"], bound_by=tk["bwd_bound_by"],
-             library_ms=tk["bwd_library_ms"]),
+        *train_entries("", "train_kernels", g),
         dict(name="bsr_matvec", route="cuda",
              source="iadmm_tpu_torch/kernels/csrc/bsr_matvec.cu",
              replaces="iadmm_tpu/kernels/sparse_matvec.py:116",
@@ -1330,6 +1737,10 @@ def main() -> int:
              ms=bsr_row["kernel_ms"], plain_ms=bsr_row["plain_ms"],
              bound_ms=bsr_row["bound_ms"], bound_by=bsr_row["bound_by"],
              library_ms=bsr_row["library_ms"]),
+        entry("lstm_cell_f32", "iadmm_tpu_torch/kernels/csrc/lstm_cell.cu",
+              "iadmm_tpu/kernels/lstm_cell.py:49", "cell_f32",
+              m["cell_f32"] + nf["cell_f32"]),
+        *train_entries("_f32", "train_kernels_f32", m),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -12,8 +12,13 @@
 //
 // The host functions at the end launch these in the iteration's order:
 // kkt_apply (out = Ã·v), features (r and g), iteration (features, the cell
-// GEMM of cell_gemm.cuh, the update).
+// GEMM of cell_gemm.cuh, the update).  They are templates on T, the type of
+// the problem data and the cell weights: bf16 (the fast profile: every
+// vector rounded to bf16 before a matvec, tensor-core cell GEMM, bf16 H) or
+// float (the float32 profile: nothing rounded, FFMA cell GEMM, float32 H).
 #pragma once
+
+#include <type_traits>
 
 #include "cell_gemm.cuh"
 #include "kkt_matvec.cuh"
@@ -91,7 +96,11 @@ __global__ void update_kernel(const float* __restrict__ partial, int ntiles,
 
 inline int eblocks(int count) { return (count + 255) / 256; }
 
-// The batch's data and schedules: Q (B,n,n), A0 (B,m,n) bf16; p (B,n),
+// A matvec against T data rounds its vector to T first (bf16) or not.
+template <typename T>
+constexpr bool kRound = std::is_same<T, __nv_bfloat16>::value;
+
+// The batch's data and schedules: Q (B,n,n), A0 (B,m,n) in T; p (B,n),
 // zl, zu, rhom (B,m), rho_raw, alpha_raw (K,) float32.
 struct Problem {
   const void* Q;
@@ -106,7 +115,7 @@ struct Problem {
   float sigma;
 };
 
-// The cell's weights: W (2,4h), U (h,4h), Wh (h,) bf16; b (4h,), bh (1,)
+// The cell's weights: W (2,4h), U (h,4h), Wh (h,) in T; b (4h,), bh (1,)
 // float32.
 struct Weights {
   const void* W;
@@ -124,11 +133,12 @@ struct KktScratch {
 };
 
 // out = Ã·v at schedule index t; v, out (B, n+m).
+template <typename T>
 inline void kkt_apply(const Problem& P, int t, const float* v, float* out,
                       const KktScratch& ks, cudaStream_t s) {
   const int S = P.n + P.m;
-  kkt::colpass<__nv_bfloat16, true>(P.Q, P.A0, v, S, v + P.n, S, ks.partial,
-                                    ks.rowdot, P.n, P.m, P.B, s);
+  kkt::colpass<T, kRound<T>>(P.Q, P.A0, v, S, v + P.n, S, ks.partial,
+                             ks.rowdot, P.n, P.m, P.B, s);
   finish_kernel<<<eblocks(P.B * S), 256, 0, s>>>(
       2, ks.partial, ks.rowdot, kkt::n_chunks(P.n, P.m), v, nullptr, nullptr,
       nullptr, nullptr, P.rho_raw, P.rhom, t, P.sigma, out, P.n, P.m, P.B);
@@ -136,23 +146,25 @@ inline void kkt_apply(const Problem& P, int t, const float* v, float* out,
 
 // The KKT features of iteration t at the state (xv, x, y, z):
 // r = Ã·xv − b̃ and g = Ã·r, each (B, n+m).
+template <typename T>
 inline void features(const Problem& P, int t, const float* xv,
                      const float* x, const float* y, const float* z, float* r,
                      float* g, const KktScratch& ks, cudaStream_t s) {
   const int S = P.n + P.m;
-  kkt::colpass<__nv_bfloat16, true>(P.Q, P.A0, xv, S, xv + P.n, S,
-                                    ks.partial, ks.rowdot, P.n, P.m, P.B, s);
+  kkt::colpass<T, kRound<T>>(P.Q, P.A0, xv, S, xv + P.n, S, ks.partial,
+                             ks.rowdot, P.n, P.m, P.B, s);
   finish_kernel<<<eblocks(P.B * S), 256, 0, s>>>(
       1, ks.partial, ks.rowdot, kkt::n_chunks(P.n, P.m), xv, x, y, z, P.p,
       P.rho_raw, P.rhom, t, P.sigma, r, P.n, P.m, P.B);
-  kkt_apply(P, t, r, g, ks, s);
+  kkt_apply<T>(P, t, r, g, ks, s);
 }
 
 // Learned iteration t from the state (xv, x, y, z, H, C) to the *_out one:
-// features, the cell GEMM (bf16 H, float32 C; H_f32, when not null, also
+// features, the cell GEMM (H in T, float32 C; H_f32, when not null, also
 // receives H' unrounded), the update.  The in and out vectors, and C and
 // C_out, may be the same (in place); H_out must not alias H.  r, g
 // (B, n+m), cell_partial (ceil(h/16), B·(n+m)) are scratch.
+template <typename T>
 inline void iteration(const Problem& P, const Weights& w, int t,
                       const float* xv, const float* x, const float* y,
                       const float* z, const void* H, const void* C,
@@ -161,10 +173,9 @@ inline void iteration(const Problem& P, const Weights& w, int t,
                       float* r, float* g, float* cell_partial,
                       const KktScratch& ks, cudaStream_t s) {
   const int M = P.B * (P.n + P.m);
-  features(P, t, xv, x, y, z, r, g, ks, s);
-  cell::launch<__nv_bfloat16, float>(xv, g, 1, 0, H, C, w.W, w.U, w.b, w.Wh,
-                                     H_out, C_out, cell_partial, M, w.h, s,
-                                     H_f32);
+  features<T>(P, t, xv, x, y, z, r, g, ks, s);
+  cell::launch<T, T, float>(xv, g, 1, 0, H, C, w.W, w.U, w.b, w.Wh, H_out,
+                            C_out, cell_partial, M, w.h, s, H_f32);
   update_kernel<<<eblocks(M), 256, 0, s>>>(
       cell_partial, cell::n_tiles(w.h), w.bh, xv, xv_out, x, x_out, y, y_out,
       z, z_out, P.zl, P.zu, P.rho_raw, P.alpha_raw, P.rhom, t, P.n, P.m,

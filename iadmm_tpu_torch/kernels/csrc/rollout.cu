@@ -69,10 +69,11 @@ int iadmm_rollout_step(int t, const void* Q, const void* A0, const void* p,
   float* xf = static_cast<float*>(x);
   float* yf = static_cast<float*>(y);
   float* zf = static_cast<float*>(z);
-  admm::iteration(P, w, t, xvf, xf, yf, zf, H_in, C, xvf, xf, yf, zf, H_out,
-                  C, nullptr, static_cast<float*>(r), static_cast<float*>(g),
-                  static_cast<float*>(cell_partial), ks,
-                  static_cast<cudaStream_t>(stream));
+  admm::iteration<__nv_bfloat16>(
+      P, w, t, xvf, xf, yf, zf, H_in, C, xvf, xf, yf, zf, H_out, C, nullptr,
+      static_cast<float*>(r), static_cast<float*>(g),
+      static_cast<float*>(cell_partial), ks,
+      static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

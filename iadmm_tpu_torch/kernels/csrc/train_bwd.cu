@@ -16,10 +16,10 @@
 //                 (cell_gemm.cuh's main loop: 128 tokens × the i, f, o, u
 //                 columns of 16 hidden units), with an epilogue that forms
 //                 dH' = sH + ddel·W_hᵀ, dC' and the four dpre quarters, writes
-//                 dpre (bf16), sC ← dC'·f, and per-tile partial sums for
-//                 dxv, dg (rows) and db, dW, dW_h (columns)
-//   dH = dpre·Uᵀ  into sH                          (gemm_bf16.cuh)
-//   dU += H_kᵀ·dpre                                 (gemm_bf16.cuh)
+//                 dpre (in the compute dtype), sC ← dC'·f, and per-tile
+//                 partial sums for dxv, dg (rows) and db, dW, dW_h (columns)
+//   dH = dpre·Uᵀ  into sH                 (gemm_bf16.cuh / gemm_f32.cuh)
+//   dU += H_kᵀ·dpre                        (gemm_bf16.cuh / gemm_f32.cuh)
 //   reductions    the column partials into db, dW, dW_h; the row partials
 //                 into dxv and dg
 //   vector tail   admm::kkt_apply twice (dr = Ã·dg, [du; dν] = Ã·dr), the
@@ -28,20 +28,24 @@
 //
 // Every sum over tokens, instances or tiles has a fixed order: each output
 // element is owned by one thread, partials are summed in tile order, and no
-// float atomics are used, so two runs give bitwise-equal gradients.  The
-// bf16 rounding points are the TPU kernel's: dpre before the dU and dH
-// products (train_rollout.py:586), ddel before dH' and dW_h (:563-569), the
-// vectors before every matvec; db, dW, dxv and dg use float32 dpre
-// (:590-603).  The clip mask z_t + y/ρ ∈ [zl, zu] is inclusive at both ends
-// (:510-511).
+// float atomics are used, so two runs give bitwise-equal gradients.  Two
+// compute dtypes (the entry point's f32 flag), as in train_fwd.cu.  In the
+// bf16 one the rounding points are the TPU kernel's: dpre before the dU and
+// dH products (train_rollout.py:586), ddel before dH' and dW_h (:563-569),
+// the vectors before every matvec; db, dW, dxv and dg use float32 dpre
+// (:590-603).  The float32 one rounds nothing: dpre is stored in float32 and
+// the three GEMMs run on the CUDA cores (FFMA, no TF32).  The clip mask
+// z_t + y/ρ ∈ [zl, zu] is inclusive at both ends (:510-511).
 //
 // Bound on the H100 at B=2, S=2000, h=800, J=100: three GEMMs a step,
-// J·3·2·B·S·h·4h = 6.14 TFLOP, 6.21 ms at 989 TFLOP/s, against 1.92 GB of
-// streams read back (0.57 ms at 3.35 TB/s): operations.
+// J·3·2·B·S·h·4h = 6.14 TFLOP, 6.21 ms at 989 TFLOP/s (bf16) or 91.7 ms at
+// 67 TFLOP/s (float32), against 1.92 GB (bf16 H) or 2.56 GB (float32 H) of
+// streams read back (0.57 / 0.76 ms at 3.35 TB/s): operations.
 
 #include "admm_step.cuh"
 #include "cell_gemm.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -142,20 +146,19 @@ __global__ void sum_kernel(const float* __restrict__ v, int count,
 // The cell adjoint of train_rollout.py:553-620 for the tile (m0, u0):
 // recompute the gate pre-activations, form dpre and the carries, write the
 // partial sums (see the header).  ddel = −dxv (after the update adjoint).
+// T: the compute dtype of H, the weights and dpre.
+template <typename T>
 __global__ void __launch_bounds__(cell::THREADS)
-    cell_bwd_kernel(const __nv_bfloat16* __restrict__ H_k,
-                    const __nv_bfloat16* __restrict__ H_n,
+    cell_bwd_kernel(const T* __restrict__ H_k, const T* __restrict__ H_n,
                     const float* __restrict__ C_k,
                     const float* __restrict__ C_n,
                     const float* __restrict__ xv_k,
                     const float* __restrict__ g,
                     const float* __restrict__ dxv,
-                    const __nv_bfloat16* __restrict__ W,
-                    const __nv_bfloat16* __restrict__ U,
+                    const T* __restrict__ W, const T* __restrict__ U,
                     const float* __restrict__ bias,
-                    const __nv_bfloat16* __restrict__ Wh,
-                    const float* __restrict__ sH, float* __restrict__ sC,
-                    __nv_bfloat16* __restrict__ dpre,
+                    const T* __restrict__ Wh, const float* __restrict__ sH,
+                    float* __restrict__ sC, T* __restrict__ dpre,
                     float* __restrict__ pxv, float* __restrict__ pg,
                     float* __restrict__ pdb, float* __restrict__ pdw0,
                     float* __restrict__ pdw1, float* __restrict__ pdwh,
@@ -175,9 +178,9 @@ __global__ void __launch_bounds__(cell::THREADS)
     const bool ok = gr < M;
     xs_s[tid] = ok ? xv_k[gr] : 0.f;
     gs_s[tid] = ok ? g[gr] : 0.f;
-    dd_s[tid] = ok ? bf16_round(-dxv[gr]) : 0.f;
+    dd_s[tid] = ok ? as_operand<T>(-dxv[gr]) : 0.f;
   }
-  cell::mainloop<__nv_bfloat16>(H_k, U, M, h, m0, u0, sm);
+  cell::mainloop<T>(H_k, U, M, h, m0, u0, sm);
 
   // Epilogue: thread pair (2r, 2r+1) takes row r, 8 units each.
   const int r = tid >> 1;
@@ -211,7 +214,7 @@ __global__ void __launch_bounds__(cell::THREADS)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int col = q * h + u;
-        dpre[(size_t)gr * h4 + col] = __float2bfloat16_rn(dp[q]);
+        dpre[(size_t)gr * h4 + col] = from_f<T>(dp[q]);
         sm.C[r * LDC + q * HB + j] = dp[q];
         axv += dp[q] * to_f(W[col]);
         ag += dp[q] * to_f(W[h4 + col]);
@@ -353,20 +356,22 @@ __global__ void sched_kernel(const float* __restrict__ drv,
   }
 }
 
-}  // namespace
+// The two weight-side GEMMs in the compute dtype.
+template <bool A_COL, bool B_COL, bool ACC>
+void weight_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
+                 int ldb, float* C, int ldc, int M, int N, int K,
+                 cudaStream_t s) {
+  gemm::launch<A_COL, B_COL, ACC>(A, lda, B, ldb, C, ldc, M, N, K, s);
+}
+template <bool A_COL, bool B_COL, bool ACC>
+void weight_gemm(const float* A, int lda, const float* B, int ldb, float* C,
+                 int ldc, int M, int N, int K, cudaStream_t s) {
+  gemm32::launch<A_COL, B_COL, ACC>(A, lda, B, ldb, C, ldc, M, N, K, s);
+}
 
-extern "C" {
-
-// Reverse step k (schedule index t).  Data, weights and streams as in
-// train_fwd.cu (slots k and k+1 read).  dpr, ddr (B, J): the cotangents of
-// the losses.  Carries, updated in place: dx (B,n), dy, dz (B,m), dxv
-// (B,n+m), sH, sC (B·(n+m), h) float32.  Accumulators, added to: dW (2,4h),
-// dU (h,4h), db (4h,), dWh (h,), dbh (1,); drho, dalpha (J,): slot k
-// written.  The rest is scratch: r, g, dv, dg, drr, dun (B,n+m), drv (B,m),
-// dal (B,n), scal (1,), mv_partial (B, ceil((n+m)/32), n), rowdot (B,m),
-// dpre (B·(n+m), 4h) bf16, pxv, pg (ceil(h/16), B·(n+m)), pdb, pdw0, pdw1
-// (ceil(B·(n+m)/128), 4h), pdwh (ceil(B·(n+m)/128), h).
-int iadmm_train_bwd_step(
+// Reverse step k with T data and weights (see the entry point).
+template <typename T>
+int bwd_step(
     int k, int t, const void* Q, const void* A0, const void* p,
     const void* zl, const void* zu, const void* rhom, const void* rho_raw,
     const void* alpha_raw, const void* W, const void* U, const void* b,
@@ -386,7 +391,7 @@ int iadmm_train_bwd_step(
   const int n_mt = (M + cell::BM - 1) / cell::BM;
   const int n_ut = cell::n_tiles(h);
   const size_t slab = (size_t)M * h;
-  const auto* hsb = static_cast<const __nv_bfloat16*>(hs);
+  const auto* hsb = static_cast<const T*>(hs);
   const auto* csf = static_cast<const float*>(cs);
   const float* xv_k = static_cast<const float*>(xvs) + (size_t)k * M;
   const float* x_k = static_cast<const float*>(xs) + (size_t)k * B * n;
@@ -428,18 +433,18 @@ int iadmm_train_bwd_step(
   float* drvf = static_cast<float*>(drv);
   float* dalf = static_cast<float*>(dal);
   float* scalf = static_cast<float*>(scal);
-  auto* dpreb = static_cast<__nv_bfloat16*>(dpre);
+  auto* dpreb = static_cast<T*>(dpre);
 
   // vector head
-  admm::features(P, t, xv_k, x_k, y_k, z_k, rf, gf, ks, s);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, x_n, n, y_n, m, part, rd, n, m, B,
-                                    s);
+  admm::features<T>(P, t, xv_k, x_k, y_k, z_k, rf, gf, ks, s);
+  kkt::colpass<T, admm::kRound<T>>(Q, A0, x_n, n, y_n, m, part, rd, n, m, B,
+                                   s);
   head_kernel<<<B, 256, 0, s>>>(part, rd, nch, P.p, z_n,
                                 static_cast<const float*>(dpr),
                                 static_cast<const float*>(ddr), k, J, dvf, n,
                                 m);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, dvf, S, dvf + n, S, part, rd, n, m,
-                                    B, s);
+  kkt::colpass<T, admm::kRound<T>>(Q, A0, dvf, S, dvf + n, S, part, rd, n, m,
+                                   B, s);
   adjoint_kernel<<<eb, 256, 0, s>>>(part, rd, nch, dvf, dxf, dyf, dzf, dxvf,
                                     x_k, y_k, z_k, z_n, xv_n, P.zl, P.zu, rr,
                                     ar, rm, t, drvf, dalf, n, m, B);
@@ -447,20 +452,19 @@ int iadmm_train_bwd_step(
 
   // cell adjoint and the two weight-side GEMMs
   dim3 cgrid(n_mt, n_ut);
-  cell_bwd_kernel<<<cgrid, cell::THREADS, 0, s>>>(
+  cell_bwd_kernel<T><<<cgrid, cell::THREADS, 0, s>>>(
       hsb + k * slab, hsb + (k + 1) * slab, csf + k * slab,
-      csf + (k + 1) * slab, xv_k, gf, dxvf,
-      static_cast<const __nv_bfloat16*>(W),
-      static_cast<const __nv_bfloat16*>(U), static_cast<const float*>(b),
-      static_cast<const __nv_bfloat16*>(Wh), static_cast<const float*>(sH),
+      csf + (k + 1) * slab, xv_k, gf, dxvf, static_cast<const T*>(W),
+      static_cast<const T*>(U), static_cast<const float*>(b),
+      static_cast<const T*>(Wh), static_cast<const float*>(sH),
       static_cast<float*>(sC), dpreb, static_cast<float*>(pxv),
       static_cast<float*>(pg), static_cast<float*>(pdb),
       static_cast<float*>(pdw0), static_cast<float*>(pdw1),
       static_cast<float*>(pdwh), M, h);
-  gemm::launch<false, true, false>(dpreb, h4, U, h4, static_cast<float*>(sH),
-                                   h, M, h, h4, s);
-  gemm::launch<true, false, true>(hsb + k * slab, h, dpreb, h4,
-                                  static_cast<float*>(dU), h4, h, h4, M, s);
+  weight_gemm<false, true, false>(dpreb, h4, static_cast<const T*>(U), h4,
+                                  static_cast<float*>(sH), h, M, h, h4, s);
+  weight_gemm<true, false, true>(hsb + k * slab, h, dpreb, h4,
+                                 static_cast<float*>(dU), h4, h, h4, M, s);
   reduce_cols_kernel<<<admm::eblocks(h4), 256, 0, s>>>(
       static_cast<const float*>(pdb), static_cast<const float*>(pdw0),
       static_cast<const float*>(pdw1), static_cast<const float*>(pdwh), n_mt,
@@ -471,8 +475,8 @@ int iadmm_train_bwd_step(
                                         dxvf, dgf, M);
 
   // vector tail
-  admm::kkt_apply(P, t, dgf, drf, ks, s);
-  admm::kkt_apply(P, t, drf, duf, ks, s);
+  admm::kkt_apply<T>(P, t, dgf, drf, ks, s);
+  admm::kkt_apply<T>(P, t, drf, duf, ks, s);
   tail_kernel<<<eb, 256, 0, s>>>(drf, duf, dgf, rf, xv_k, y_k, rr, rm, t,
                                  sigma, dxf, dyf, dzf, dxvf, drvf, n, m, B);
   sched_kernel<<<1, 1024, 0, s>>>(drvf, rm, dalf, scalf, rr, ar, t, k,
@@ -480,6 +484,41 @@ int iadmm_train_bwd_step(
                                   static_cast<float*>(dalpha),
                                   static_cast<float*>(dbh), n, m, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Reverse step k (schedule index t).  Data, weights and streams as in
+// train_fwd.cu (slots k and k+1 read): bf16, or float32 when f32.  dpr, ddr
+// (B, J): the cotangents of the losses.  Carries, updated in place: dx
+// (B,n), dy, dz (B,m), dxv (B,n+m), sH, sC (B·(n+m), h) float32.
+// Accumulators, added to: dW (2,4h), dU (h,4h), db (4h,), dWh (h,), dbh
+// (1,); drho, dalpha (J,): slot k written.  The rest is scratch: r, g, dv,
+// dg, drr, dun (B,n+m), drv (B,m), dal (B,n), scal (1,), mv_partial
+// (B, ceil((n+m)/32), n), rowdot (B,m), dpre (B·(n+m), 4h) in the dtype of
+// Q, pxv, pg (ceil(h/16), B·(n+m)), pdb, pdw0, pdw1 (ceil(B·(n+m)/128), 4h),
+// pdwh (ceil(B·(n+m)/128), h).
+int iadmm_train_bwd_step(
+    int k, int t, const void* Q, const void* A0, const void* p,
+    const void* zl, const void* zu, const void* rhom, const void* rho_raw,
+    const void* alpha_raw, const void* W, const void* U, const void* b,
+    const void* Wh, const void* hs, const void* cs, const void* xs,
+    const void* ys, const void* zs, const void* xvs, const void* dpr,
+    const void* ddr, void* dx, void* dy, void* dz, void* dxv, void* sH,
+    void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh, void* drho,
+    void* dalpha, void* r, void* g, void* dv, void* dg, void* drr, void* dun,
+    void* drv, void* dal, void* scal, void* mv_partial, void* rowdot,
+    void* dpre, void* pxv, void* pg, void* pdb, void* pdw0, void* pdw1,
+    void* pdwh, int B, int n, int m, int h, int J, int f32, float sigma,
+    void* stream) {
+  auto run = f32 ? &bwd_step<float> : &bwd_step<__nv_bfloat16>;
+  return run(k, t, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, b, Wh,
+             hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH, sC, dW,
+             dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun, drv, dal,
+             scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1, pdwh, B,
+             n, m, h, J, sigma, stream);
 }
 
 }  // extern "C"

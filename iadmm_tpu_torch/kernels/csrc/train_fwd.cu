@@ -14,11 +14,18 @@
 //   7.   colpass(x', y')         A0·x', Q·x' + A0ᵀ·y'
 //   8.   loss                    pr[b,k] = ‖A0x' − z'‖, dr[b,k] = ‖Qx' + p + A0ᵀy'‖
 //
+// Two compute dtypes (the entry point's f32 flag), as the TPU kernel's
+// compute_dtype: bf16 (Q, A0, W, U, W_h in bf16, every vector rounded to
+// bf16 before a matvec, tensor-core gate GEMM) or float32 (all of them
+// float32, nothing rounded, the gate GEMM on the CUDA cores in FFMA; the TPU
+// kernel runs these products at Precision.HIGHEST).
+//
 // The streams are the carries.  They are step-major, slot k·B + b, rather
 // than the TPU kernel's b·(J+1) + k, so that a step's slab is contiguous and
 // the kernels address it as rollout.cu addresses its carries:
-//   hs (J+1, B·S, h) bf16   H as the gate GEMM consumes it: the GEMM reads
-//                           slot k and its epilogue writes bf16(H') to k+1
+//   hs (J+1, B·S, h) cdt    H as the gate GEMM consumes it: the GEMM reads
+//                           slot k and its epilogue writes H' (bf16(H') in
+//                           the bf16 profile) to k+1
 //   cs (J+1, B·S, h) f32    C: read from slot k, C' written to k+1
 //   xs, ys, zs, xvs (J+1, B, ·) f32
 // Slot 0 holds the chunk's start state (the wrapper copies it in), slot J the
@@ -28,8 +35,9 @@
 // float32 to H_final on the last step.
 //
 // Bound on the H100 at B=2, S=2000, h=800, J=100: the gate GEMM,
-// J·2·B·S·h·4h = 2.05 TFLOP, 2.07 ms at 989 TFLOP/s, against 1.92 GB of
-// stream writes (0.57 ms at 3.35 TB/s): operations.
+// J·2·B·S·h·4h = 2.05 TFLOP, 2.07 ms at 989 TFLOP/s (bf16) or 30.6 ms at 67
+// TFLOP/s (float32), against 1.92 GB (bf16 H) or 2.56 GB (float32 H) of
+// stream writes (0.57 / 0.76 ms at 3.35 TB/s): operations.
 
 #include "admm_step.cuh"
 
@@ -64,17 +72,50 @@ __global__ void loss_kernel(const float* __restrict__ partial,
   }
 }
 
+// Step k of the chunk with T data and weights (see the entry point).
+template <typename T>
+void step(const admm::Problem& P, const admm::Weights& w,
+          const admm::KktScratch& ks, int k, int t, void* hs, void* cs,
+          void* xs, void* ys, void* zs, void* xvs, void* H_final, void* pr,
+          void* dr, void* r, void* g, void* cell_partial, int J,
+          cudaStream_t s) {
+  const int B = P.B, n = P.n, m = P.m;
+  const int M = B * (n + m);
+  const size_t slab = (size_t)M * w.h;
+  float* xv_k = static_cast<float*>(xvs) + (size_t)k * M;
+  float* x_k = static_cast<float*>(xs) + (size_t)k * B * n;
+  float* y_k = static_cast<float*>(ys) + (size_t)k * B * m;
+  float* z_k = static_cast<float*>(zs) + (size_t)k * B * m;
+  float* x_n = x_k + B * n;
+  float* y_n = y_k + B * m;
+  float* z_n = z_k + B * m;
+
+  admm::iteration<T>(P, w, t, xv_k, x_k, y_k, z_k,
+                     static_cast<const T*>(hs) + k * slab,
+                     static_cast<const float*>(cs) + k * slab, xv_k + M, x_n,
+                     y_n, z_n, static_cast<T*>(hs) + (k + 1) * slab,
+                     static_cast<float*>(cs) + (k + 1) * slab,
+                     static_cast<float*>(H_final), static_cast<float*>(r),
+                     static_cast<float*>(g),
+                     static_cast<float*>(cell_partial), ks, s);
+  kkt::colpass<T, admm::kRound<T>>(P.Q, P.A0, x_n, n, y_n, m, ks.partial,
+                                   ks.rowdot, n, m, B, s);
+  loss_kernel<<<B, 256, 0, s>>>(ks.partial, ks.rowdot, kkt::n_chunks(n, m),
+                                P.p, z_n, static_cast<float*>(pr),
+                                static_cast<float*>(dr), k, J, n, m);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Step k of the chunk (schedule index t).  Q (B,n,n), A0 (B,m,n), W (2,4h),
-// U (h,4h), Wh (h,) bf16; p (B,n), zl, zu, rhom (B,m), rho_raw/alpha_raw
-// (K_total,), b (4h,), bh (1,) float32.  Streams as in the header; slot k is
-// read and slot k+1 written.  H_final (B·S, h) float32 or null.  pr, dr
-// (B, J) float32: column k written.  r, g (B,n+m), mv_partial
-// (B, ceil((n+m)/32), n), rowdot (B,m), cell_partial (ceil(h/16), B·(n+m))
-// are scratch.
+// U (h,4h), Wh (h,) bf16, or float32 when f32; p (B,n), zl, zu, rhom (B,m),
+// rho_raw/alpha_raw (K_total,), b (4h,), bh (1,) float32.  Streams as in the
+// header (hs in the dtype of Q); slot k is read and slot k+1 written.
+// H_final (B·S, h) float32 or null.  pr, dr (B, J) float32: column k
+// written.  r, g (B,n+m), mv_partial (B, ceil((n+m)/32), n), rowdot (B,m),
+// cell_partial (ceil(h/16), B·(n+m)) are scratch.
 int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
                          const void* p, const void* zl, const void* zu,
                          const void* rhom, const void* rho_raw,
@@ -84,10 +125,7 @@ int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
                          void* xvs, void* H_final, void* pr, void* dr,
                          void* r, void* g, void* mv_partial, void* rowdot,
                          void* cell_partial, int B, int n, int m, int h,
-                         int J, float sigma, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * (n + m);
-  const size_t slab = (size_t)M * h;
+                         int J, int f32, float sigma, void* stream) {
   const admm::Problem P{Q,
                         A0,
                         static_cast<const float*>(p),
@@ -104,27 +142,9 @@ int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
                         static_cast<const float*>(bh), h};
   const admm::KktScratch ks{static_cast<float*>(mv_partial),
                             static_cast<float*>(rowdot)};
-  float* xv_k = static_cast<float*>(xvs) + (size_t)k * M;
-  float* x_k = static_cast<float*>(xs) + (size_t)k * B * n;
-  float* y_k = static_cast<float*>(ys) + (size_t)k * B * m;
-  float* z_k = static_cast<float*>(zs) + (size_t)k * B * m;
-  float* x_n = x_k + B * n;
-  float* y_n = y_k + B * m;
-  float* z_n = z_k + B * m;
-
-  admm::iteration(P, w, t, xv_k, x_k, y_k, z_k,
-                  static_cast<const __nv_bfloat16*>(hs) + k * slab,
-                  static_cast<const float*>(cs) + k * slab, xv_k + M, x_n,
-                  y_n, z_n, static_cast<__nv_bfloat16*>(hs) + (k + 1) * slab,
-                  static_cast<float*>(cs) + (k + 1) * slab,
-                  static_cast<float*>(H_final), static_cast<float*>(r),
-                  static_cast<float*>(g), static_cast<float*>(cell_partial),
-                  ks, s);
-  kkt::colpass<__nv_bfloat16, true>(Q, A0, x_n, n, y_n, m, ks.partial,
-                                    ks.rowdot, n, m, B, s);
-  loss_kernel<<<B, 256, 0, s>>>(ks.partial, ks.rowdot, kkt::n_chunks(n, m),
-                                P.p, z_n, static_cast<float*>(pr),
-                                static_cast<float*>(dr), k, J, n, m);
+  auto run = f32 ? &step<float> : &step<__nv_bfloat16>;
+  run(P, w, ks, k, t, hs, cs, xs, ys, zs, xvs, H_final, pr, dr, r, g,
+      cell_partial, J, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

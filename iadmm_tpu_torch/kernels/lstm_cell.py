@@ -2,11 +2,15 @@
 
 Replaces ``iadmm_tpu/kernels/lstm_cell.py::_cell_kernel``.  The kernel
 (``csrc/lstm_cell.cu`` over ``csrc/cell_gemm.cuh``) computes the gate GEMM
-on the tensor cores with the i/f/o/u columns of the same hidden units in
-one tile, so the activations, C' and H' are finished in the epilogue and
-the 4h gate pre-activations never reach device memory.  Its bound on the
-H100 is the H·U GEMM at the bf16 tensor-core rate (see the header of
-``csrc/cell_gemm.cuh``).
+with the i/f/o/u columns of the same hidden units in one tile, so the
+activations, C' and H' are finished in the epilogue and the 4h gate
+pre-activations never reach device memory.  Both gate dtypes of the TPU
+kernel: ``'bfloat16'`` on the tensor cores (bound: the H·U GEMM at the
+bf16 tensor-core rate) and ``'float32'`` (the TPU kernel's
+``Precision.HIGHEST``: float32 operands, nothing rounded, no TF32) on the
+CUDA cores in FFMA (bound: the same GEMM at the float32 rate); see the
+header of ``csrc/cell_gemm.cuh``.  Launches are counted per gate dtype:
+``fused_lstm_cell.launches`` (bf16) and ``fused_lstm_cell.launches_f32``.
 
 :func:`fused_lstm_cell` is a ``torch.autograd.Function`` whose backward
 recomputes the cell with the plain :func:`cells.lstm_apply` at the same gate
@@ -25,6 +29,7 @@ from . import _build
 
 CELL_KEYS = ("W", "U", "b", "W_h", "b_h")
 _STATE_DTYPES = (torch.bfloat16, torch.float32)
+_GATE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def cell_plain(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
@@ -49,10 +54,9 @@ def check_cell_weights(W, U, b, W_h, b_h, h: int) -> None:
 
 def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
     """The kernel on CUDA tensors; same contract as :func:`cell_plain`."""
-    if gate_dtype_name != "bfloat16":
-        raise NotImplementedError(
-            "the CUDA cell kernel runs bf16 gates only; the float32-gate "
-            "variant is listed in ROADMAP.md (Queue 2)")
+    if gate_dtype_name not in _GATE_DTYPES:
+        raise ValueError(f"unknown gate dtype {gate_dtype_name!r}; the "
+                         f"cell kernel takes {sorted(_GATE_DTYPES)}")
     if H.dtype not in _STATE_DTYPES or C.dtype not in _STATE_DTYPES:
         raise TypeError(f"H/C dtypes {H.dtype}/{C.dtype} not in "
                         f"{_STATE_DTYPES}")
@@ -67,28 +71,32 @@ def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
         if t.device != dev:
             raise ValueError("all cell tensors must be on one device")
     M = B * S
-    bf = torch.bfloat16
-    x = inputs.to(torch.float32).contiguous()
+    bf, f32 = torch.bfloat16, torch.float32
+    wdt = _GATE_DTYPES[gate_dtype_name]
+    x = inputs.to(f32).contiguous()
     Hc, Cc = _build.aligned(H), C.contiguous()
-    Wb = W.to(bf).contiguous()
-    Ub = _build.aligned(U.to(bf))
-    bb = b.to(torch.float32).contiguous()
-    Whb = W_h.reshape(-1).to(bf).contiguous()
-    bhb = b_h.reshape(-1).to(torch.float32).contiguous()
+    Wc = W.to(wdt).contiguous()
+    Uc = _build.aligned(U.to(wdt))
+    bb = b.to(f32).contiguous()
+    Whc = W_h.reshape(-1).to(wdt).contiguous()
+    bhb = b_h.reshape(-1).to(f32).contiguous()
     H_out = torch.empty_like(Hc)
     C_out = torch.empty_like(Cc)
     n_tiles = (h + _build.CELL_HB - 1) // _build.CELL_HB
-    partial = torch.empty((n_tiles, M), dtype=torch.float32, device=dev)
-    delta = torch.empty((B, S), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_tiles, M), dtype=f32, device=dev)
+    delta = torch.empty((B, S), dtype=f32, device=dev)
     fn = _build.function("lstm_cell", "iadmm_cell_forward",
-                         [_build.P] * 12 + [_build.I] * 4 + [_build.P])
-    code = fn(x.data_ptr(), Hc.data_ptr(), Cc.data_ptr(), Wb.data_ptr(),
-              Ub.data_ptr(), bb.data_ptr(), Whb.data_ptr(), bhb.data_ptr(),
+                         [_build.P] * 12 + [_build.I] * 5 + [_build.P])
+    code = fn(x.data_ptr(), Hc.data_ptr(), Cc.data_ptr(), Wc.data_ptr(),
+              Uc.data_ptr(), bb.data_ptr(), Whc.data_ptr(), bhb.data_ptr(),
               H_out.data_ptr(), C_out.data_ptr(), partial.data_ptr(),
               delta.data_ptr(), M, h, int(H.dtype == bf), int(C.dtype == bf),
-              _build.stream_ptr(dev))
+              int(wdt == f32), _build.stream_ptr(dev))
     _build.check(code, "iadmm_cell_forward")
-    fused_lstm_cell.launches += 1
+    if wdt == f32:
+        fused_lstm_cell.launches_f32 += 1
+    else:
+        fused_lstm_cell.launches += 1
     return delta, H_out, C_out
 
 
@@ -128,7 +136,8 @@ def fused_lstm_cell(params: Dict, inputs, H, C,
                                 *(params[k] for k in CELL_KEYS))
 
 
-fused_lstm_cell.launches = 0  # kernel launches, counted by cell_cuda
+fused_lstm_cell.launches = 0      # bf16-gate launches, counted by cell_cuda
+fused_lstm_cell.launches_f32 = 0  # float32-gate launches
 
 
 def make_pallas_lstm_apply(gate_dtype: str = "float32"):

@@ -7,21 +7,25 @@ dual residual losses, writing the per-step state streams) and
 of the forward).  On CUDA tensors :func:`make_fused_chunk_loss` launches
 ``csrc/train_fwd.cu`` once per step of the chunk and ``csrc/train_bwd.cu``
 once per reverse step; see their headers for the design.  Bounds on the
-H100 at B=2, S=n+m=2000, h=800, J=100, both set by the gate GEMMs' bf16
-operations: forward 2.1 ms (one GEMM a step), backward 6.2 ms (three).
+H100 at B=2, S=n+m=2000, h=800, J=100, both set by the gate GEMMs'
+operations: forward 2.1 ms (one GEMM a step) and backward 6.2 ms (three)
+at the bf16 tensor-core rate, 30.6 ms and 91.7 ms at the float32 rate.
 On CPU tensors it runs :func:`train_fwd_plain` and :func:`train_bwd_plain`,
 the same two functions in plain PyTorch, line for line with the TPU
 kernel's ``step`` and ``bstep`` and with its bf16 rounding points.
 
-Numerics (``compute_dtype="bfloat16"``, the canonical profile): Q, A0, W,
-U, W_h and every vector rounded to bf16 before each product, float32 sums;
+Numerics (``compute_dtype="bfloat16"``, the fast profile): Q, A0, W, U,
+W_h and every vector rounded to bf16 before each product, float32 sums;
 float32 xv and g against bf16 W in the gates; H carried in float32 and
 rounded to bf16 where the gate GEMM consumes it (the H stream holds that
-operand); C carried and streamed in float32.  ``"float32"`` rounds nothing
-and computes in the dtype of the state (float64 in the tests that hold the
-hand-derived backward against autograd); the CUDA kernels take
-``"bfloat16"`` only.  Q is taken as symmetric, as the TPU kernel's backward
-takes it (``Q·v`` is formed as ``vᵀQ``).
+operand); C carried and streamed in float32.  ``"float32"`` (the TPU
+kernel's ``Precision.HIGHEST``) rounds nothing and computes in the dtype of
+the state (float64 in the tests that hold the hand-derived backward against
+autograd); its CUDA kernels take float32 operands, stream H in float32 and
+run every product in float32 FFMA (no TF32).  Q is taken as symmetric, as
+the TPU kernel's backward takes it (``Q·v`` is formed as ``vᵀQ``).
+Launches are counted per compute dtype: ``train_fwd_cuda.launches`` and
+``train_bwd_cuda.launches`` (bf16), ``.launches_f32`` (float32).
 
 Gradients flow to ``W, U, b, W_h, b_h, rho, alpha`` only; the state and the
 problem data get none, as ``_package_grads`` gives none.  The ``rho`` and
@@ -29,7 +33,7 @@ problem data get none, as ``_package_grads`` gives none.  The ``rho`` and
 No 128-lane padding: the shapes are the problem's own.
 
 Streams, step-major (slot k of step k, slot J the final state):
-``hs (J+1, B, S, h)`` (bf16 in the bf16 profile), ``cs (J+1, B, S, h)``,
+``hs (J+1, B, S, h)`` (in the compute dtype), ``cs (J+1, B, S, h)``,
 ``xs (J+1, B, n)``, ``ys``, ``zs (J+1, B, m)``, ``xvs (J+1, B, S)``.
 """
 
@@ -47,6 +51,7 @@ from .lstm_cell import CELL_KEYS, check_cell_weights
 
 _GRAD_KEYS = CELL_KEYS + ("rho", "alpha")
 _COMPUTE_DTYPES = ("bfloat16", "float32")
+_CDT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _rounder(compute_dtype: str, wd: torch.dtype):
@@ -262,18 +267,15 @@ def train_bwd_plain(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
 # CUDA wrappers
 # --------------------------------------------------------------------------
 
-_FWD_ARGS = ([_build.I] * 2 + [_build.P] * 27 + [_build.I] * 5
+_FWD_ARGS = ([_build.I] * 2 + [_build.P] * 27 + [_build.I] * 6
              + [_build.F, _build.P])
-_BWD_ARGS = ([_build.I] * 2 + [_build.P] * 51 + [_build.I] * 5
+_BWD_ARGS = ([_build.I] * 2 + [_build.P] * 51 + [_build.I] * 6
              + [_build.F, _build.P])
 
 
 def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
-    if compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            "the CUDA training kernels run compute_dtype='bfloat16' only; "
-            "the float32 variant is listed in ROADMAP.md (Queue 2), next to "
-            "the float32-gate cell")
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     if J < 1:
         raise ValueError(f"a chunk needs J >= 1 steps, got {J}")
     x, y, z, xv, H, C = state
@@ -302,15 +304,16 @@ def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
     return B, n, m, h
 
 
-def _prep_cuda(weights, data):
-    """Kernel operands: bf16 matrices, float32 vectors, all contiguous."""
-    bf, f32 = torch.bfloat16, torch.float32
+def _prep_cuda(weights, data, compute_dtype):
+    """Kernel operands: matrices and cell weights in the compute dtype,
+    float32 vectors, all contiguous."""
+    cdt, f32 = _CDT[compute_dtype], torch.float32
     W, U, b, W_h, b_h, rho, alpha = weights
     Q, A0, p, zl, zu, rhom = data
-    mats = [_build.aligned(Q.to(bf)), _build.aligned(A0.to(bf))]
+    mats = [_build.aligned(Q.to(cdt)), _build.aligned(A0.to(cdt))]
     vecs = [t.to(f32).contiguous() for t in (p, zl, zu, rhom, rho, alpha)]
-    wts = [W.to(bf).contiguous(), _build.aligned(U.to(bf)),
-           b.to(f32).contiguous(), W_h.reshape(-1).to(bf).contiguous(),
+    wts = [W.to(cdt).contiguous(), _build.aligned(U.to(cdt)),
+           b.to(f32).contiguous(), W_h.reshape(-1).to(cdt).contiguous(),
            b_h.reshape(-1).to(f32).contiguous()]
     return mats + vecs + wts
 
@@ -323,10 +326,10 @@ def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
                                     t0)
     dev = state[0].device
     S, M = n + m, B * (n + m)
-    f32, bf = torch.float32, torch.bfloat16
-    ops = _prep_cuda(weights, data)
+    f32 = torch.float32
+    ops = _prep_cuda(weights, data, compute_dtype)
     x, y, z, xv, H, C = state
-    hs = torch.empty((J + 1, B, S, h), dtype=bf, device=dev)
+    hs = torch.empty((J + 1, B, S, h), dtype=_CDT[compute_dtype], device=dev)
     cs = torch.empty((J + 1, B, S, h), dtype=f32, device=dev)
     xs = torch.empty((J + 1, B, n), dtype=f32, device=dev)
     ys = torch.empty((J + 1, B, m), dtype=f32, device=dev)
@@ -348,18 +351,23 @@ def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
     fixed = [t.data_ptr() for t in (*ops, hs, cs, xs, ys, zs, xvs)]
     tail = [pr.data_ptr(), dr.data_ptr(), r.data_ptr(), g.data_ptr(),
             mv_partial.data_ptr(), rowdot.data_ptr(), cell_partial.data_ptr()]
+    f32_flag = int(compute_dtype == "float32")
     for k in range(J):
         code = fn(k, t0 + k, *fixed,
                   H_final.data_ptr() if k == J - 1 else None, *tail,
-                  B, n, m, h, J, float(sigma), stream)
+                  B, n, m, h, J, f32_flag, float(sigma), stream)
         _build.check(code, "iadmm_train_fwd_step")
-        train_fwd_cuda.launches += 1
+        if f32_flag:
+            train_fwd_cuda.launches_f32 += 1
+        else:
+            train_fwd_cuda.launches += 1
     final = (xs[J].clone(), ys[J].clone(), zs[J].clone(), xvs[J].clone(),
              H_final, cs[J].clone())
     return pr, dr, final, (hs, cs, xs, ys, zs, xvs)
 
 
-train_fwd_cuda.launches = 0  # steps launched
+train_fwd_cuda.launches = 0      # steps launched, bf16 compute
+train_fwd_cuda.launches_f32 = 0  # steps launched, float32 compute
 
 
 def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
@@ -371,7 +379,7 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
     B, n, m, h = _check_cuda_inputs(weights, state0, data, compute_dtype, J,
                                     t0)
     S = n + m
-    want = {"hs": (torch.bfloat16, (J + 1, B, S, h)),
+    want = {"hs": (_CDT[compute_dtype], (J + 1, B, S, h)),
             "cs": (torch.float32, (J + 1, B, S, h)),
             "xs": (torch.float32, (J + 1, B, n)),
             "ys": (torch.float32, (J + 1, B, m)),
@@ -385,8 +393,8 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
                              f"contiguous {dt} {shape}")
     dev = xs.device
     M, h4 = B * S, 4 * h
-    f32, bf = torch.float32, torch.bfloat16
-    ops = _prep_cuda(weights, data)
+    f32, cdt = torch.float32, _CDT[compute_dtype]
+    ops = _prep_cuda(weights, data, compute_dtype)
     dx, dy, dz, dxv, sH, sC = (t.to(f32).contiguous().clone()
                                for t in dfinal)
     dpr = dpr.to(f32).contiguous()
@@ -407,7 +415,7 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
     scratch = [empty(B, S) for _ in range(6)]           # r g dv dg drr dun
     scratch += [empty(B, m), empty(B, n), empty(1),      # drv dal scal
                 empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
-                empty(B, m), empty(M, h4, dt=bf),        # rowdot dpre
+                empty(B, m), empty(M, h4, dt=cdt),       # rowdot dpre
                 empty(n_ut, M), empty(n_ut, M),          # pxv pg
                 empty(n_mt, h4), empty(n_mt, h4), empty(n_mt, h4),
                 empty(n_mt, h)]
@@ -419,15 +427,21 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
         *ops[:12], hs, cs, xs, ys, zs, xvs, dpr, ddr,
         dx, dy, dz, dxv, sH, sC, dW, dU, db, dWh, dbh, drho, dalpha,
         *scratch)]
+    f32_flag = int(compute_dtype == "float32")
     for k in reversed(range(J)):
-        code = fn(k, t0 + k, *ptrs, B, n, m, h, J, float(sigma), stream)
+        code = fn(k, t0 + k, *ptrs, B, n, m, h, J, f32_flag, float(sigma),
+                  stream)
         _build.check(code, "iadmm_train_bwd_step")
-        train_bwd_cuda.launches += 1
+        if f32_flag:
+            train_bwd_cuda.launches_f32 += 1
+        else:
+            train_bwd_cuda.launches += 1
     grads = (dW, dU, db, dWh[:, None], dbh, drho, dalpha)
     return grads, (dx, dy, dz, dxv, sH.reshape(B, S, h), sC.reshape(B, S, h))
 
 
-train_bwd_cuda.launches = 0  # reverse steps launched
+train_bwd_cuda.launches = 0      # reverse steps launched, bf16 compute
+train_bwd_cuda.launches_f32 = 0  # reverse steps launched, float32 compute
 
 
 class _TrainChunk(torch.autograd.Function):
@@ -467,7 +481,12 @@ class _TrainChunk(torch.autograd.Function):
 
 def stream_bytes(batch: int, chunk_len: int, num_var: int, num_constr: int,
                  hidden: int) -> int:
-    """Bytes of the H (bf16) and C (float32) streams of one chunk."""
+    """Bytes of the H (bf16) and C (float32) streams of one chunk: 6 bytes
+    an element whatever the compute dtype, as the JAX package counts them
+    (its ``train_rollout.py:1345``), so that both packages pick the same
+    kernel pair.  The float32 profile's streams really take 8 bytes an
+    element (float32 H): 2.59 GB at B=2, J=100, S=2000, h=800, against the
+    1.94 GB counted here."""
     return batch * (chunk_len + 1) * (num_var + num_constr) * hidden * 6
 
 

@@ -51,3 +51,36 @@ def test_segment_pair_bounds_at_the_flagship():
     assert by_f == by_b == "operations"
     assert gemm_ms < fwd < 1.2 * gemm_ms
     assert 4 * gemm_ms < bwd < 4.5 * gemm_ms
+
+
+@pytest.mark.parametrize("gate,rate", [("bfloat16", 989e12),
+                                       ("float32", 67e12)])
+def test_cell_bound_is_the_gate_gemm(gate, rate):
+    """At B=8, S=2000, h=800 the H·U GEMM (82 GFLOP) sets the bound: 83 µs
+    at the bf16 rate, 1.22 ms at the float32 rate (plus the float32
+    epilogue), far above the 77–205 MB of traffic."""
+    M, h = 8 * 2000, 800
+    ms, by = bounds.cell(M, h, gate, state_bytes=4)
+    gemm_ms = 2.0 * M * h * 4 * h / rate * 1e3
+    epilogue_ms = (2.0 * M * 2 * 4 * h + 20.0 * M * h) / 67e12 * 1e3
+    assert by == "operations"
+    assert ms == pytest.approx(gemm_ms + epilogue_ms)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_pair_bounds_at_the_flagship(dtype):
+    """Forward: one gate GEMM a step (2.07 ms bf16, 30.6 ms float32 over
+    J=100); backward: three (6.2 ms, 91.7 ms); the float32 streams take 8
+    bytes an element, the bf16 ones 6."""
+    kw = dict(B=2, J=100, n=1000, m=1000, h=800, K=100, dtype=dtype)
+    fwd, by_f = bounds.train_fwd(**kw)
+    bwd, by_b = bounds.train_bwd(**kw)
+    rate = 989e12 if dtype == "bfloat16" else 67e12
+    gemm_ms = 100 * 2.0 * 4000 * 800 * 3200 / rate * 1e3
+    assert by_f == by_b == "operations"
+    assert gemm_ms < fwd < 1.15 * gemm_ms
+    assert 3 * gemm_ms < bwd < 3.3 * gemm_ms
+    data, streams, _, _ = bounds._chunk(**kw)
+    assert streams == 100 * 4000 * 800 * (6 if dtype == "bfloat16" else 8)
+    with pytest.raises(ValueError, match="dtype"):
+        bounds.train_fwd(**dict(kw, dtype="float16"))

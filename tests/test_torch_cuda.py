@@ -5,7 +5,10 @@ only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: bf16 outputs to 2e-2 (a few bf16 ulps after other summation
-orders); float32 Stage II to 1e-4 relative.
+orders); float32 Stage II to 1e-4 relative; the float32 cell to 1e-5 of
+max|ref| (a bf16 H'/C' to one bf16 ulp) and the float32 training pair to
+1e-4 of each leaf's max|ref| at J=6 (float32 sums in another order, then
+6 steps of the recurrence), with TF32 off in the plain versions.
 """
 
 import pytest
@@ -27,6 +30,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32(dev):
+    """The plain versions' float32 products in full float32."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _params(seed, h, K=6):
@@ -54,6 +66,32 @@ def test_cell_matches_plain(dev, h, S, hc):
         assert a.dtype == b.dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("h,S,hc", [(16, 40, torch.float32),
+                                    (20, 37, torch.float32),
+                                    (64, 300, torch.bfloat16)])
+def test_float32_cell_matches_plain(no_tf32, h, S, hc):
+    """Float32 gates, float32 or bf16 H/C, ragged h = 20 included; two
+    calls bitwise equal."""
+    dev = no_tf32
+    p, g = _params(h, h)
+    keys = [p[k].to(dev) for k in tcell.CELL_KEYS]
+    x = torch.randn((2, S, 2), generator=g).to(dev)
+    H = torch.tanh(torch.randn((2, S, h), generator=g)).to(dev, hc)
+    C = torch.randn((2, S, h), generator=g).to(dev, hc)
+    before = tcell.fused_lstm_cell.launches_f32
+    out = tcell.cell_forward(*keys, x, H, C, "float32")
+    assert tcell.fused_lstm_cell.launches_f32 == before + 1
+    ref = tcell.cell_plain(*keys, x, H, C, "float32")
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(
+            a.float(), b.float(),
+            rtol=2 ** -7 if a.dtype == torch.bfloat16 else 0.0,
+            atol=1e-5 * float(b.float().abs().max()))
+    again = tcell.cell_forward(*keys, x, H, C, "float32")
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 def _qp(dev, B=2, n=20, mi=12, me=10):
@@ -183,3 +221,48 @@ def test_train_kernels_match_plain(dev, t0):
         assert gap <= 2e-2 or gap <= 2 * _leaf_gap(o, b), (k, gap)
     for k, s, b in zip("x y z xv H C".split(), sst, rst):
         assert _leaf_gap(s, b) <= 1e-3, f"d{k}"
+
+
+def test_float32_train_kernels_match_plain(no_tf32):
+    """compute_dtype='float32' at J=6: the losses, the final state and every
+    gradient leaf from the backward on the plain forward's streams to 1e-4
+    of the leaf's max|ref|; end to end every leaf to 1e-4, or, for a leaf
+    that is a cancelling sum (b_h), to within 2x the gap the plain backward
+    shows when fed the kernel's streams, as the bf16 test holds it; the H
+    stream is float32; the backward twice, bitwise equal."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    dev, J = no_tf32, 6
+    weights, st, dd, g = _train_inputs(dev)
+    kw = dict(t0=1, J=J, sigma=1e-3, compute_dtype="float32")
+    f0 = ttr.train_fwd_cuda.launches_f32
+    b0 = ttr.train_bwd_cuda.launches_f32
+    pr, dr, final, streams = ttr.train_fwd_cuda(weights, st, dd, **kw)
+    assert streams[0].dtype == torch.float32
+    rpr, rdr, rfinal, rstreams = ttr.train_fwd_plain(weights, st, dd, **kw)
+    for a, b in zip((pr, dr, *final), (rpr, rdr, *rfinal)):
+        assert _leaf_gap(a, b) <= 1e-4
+    dpr = torch.rand(pr.shape, generator=g).to(dev)
+    ddr = torch.rand(dr.shape, generator=g).to(dev)
+    dfin = tuple((0.1 * torch.randn(f.shape, generator=g)).to(dev)
+                 for f in final)
+    grads, dst = ttr.train_bwd_cuda(weights, dd, streams, dfin, dpr, ddr,
+                                    **kw)
+    again, _ = ttr.train_bwd_cuda(weights, dd, streams, dfin, dpr, ddr, **kw)
+    same, sst = ttr.train_bwd_cuda(weights, dd, rstreams, dfin, dpr, ddr,
+                                   **kw)
+    assert ttr.train_fwd_cuda.launches_f32 == f0 + J
+    assert ttr.train_bwd_cuda.launches_f32 == b0 + 3 * J
+    own, ost = ttr.train_bwd_plain(weights, dd, streams, dfin, dpr, ddr,
+                                   **kw)
+    ref, rst = ttr.train_bwd_plain(weights, dd, rstreams, dfin, dpr, ddr,
+                                   **kw)
+    for k, a, a2, s, o, b in zip("W U b W_h b_h rho alpha".split(), grads,
+                                 again, same, own, ref):
+        assert torch.equal(a, a2), k
+        assert _leaf_gap(s, b) <= 1e-4, k
+        gap = _leaf_gap(a, b)
+        assert gap <= 1e-4 or gap <= 2 * _leaf_gap(o, b), (k, gap)
+    for k, a, s, o, b in zip("x y z xv H C".split(), dst, sst, ost, rst):
+        assert _leaf_gap(s, b) <= 1e-4, f"d{k}"
+        gap = _leaf_gap(a, b)
+        assert gap <= 1e-4 or gap <= 2 * _leaf_gap(o, b), (f"d{k}", gap)

@@ -75,11 +75,23 @@ def test_cell_gradients_match_pallas():
 
 
 def test_cell_cuda_rejects_float32_gates():
+    """A float32-gate call the kernel cannot take is rejected before any
+    CUDA call (an unknown gate dtype, a state dtype it does not take, bad
+    shapes), so this holds on the CPU."""
     params, (x, H, C) = _cell_inputs()
     tp = params_to_torch(params, dtype=F32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcell.cell_cuda(*(tp[k] for k in tcell.CELL_KEYS), to_torch(x),
-                         to_torch(H), to_torch(C), "float32")
+    keys = [tp[k] for k in tcell.CELL_KEYS]
+    tx, tH, tC = to_torch(x), to_torch(H), to_torch(C)
+    with pytest.raises(ValueError, match="gate dtype"):
+        tcell.cell_cuda(*keys, tx, tH, tC, "float16")
+    with pytest.raises(TypeError, match="H/C dtypes"):
+        tcell.cell_cuda(*keys, tx, tH.double(), tC, "float32")
+    bad = dict(tp, U=tp["U"][:, :-4])
+    with pytest.raises(ValueError, match="'U'"):
+        tcell.cell_cuda(*(bad[k] for k in tcell.CELL_KEYS), tx, tH, tC,
+                        "float32")
+    with pytest.raises(ValueError, match="bad cell shapes"):
+        tcell.cell_cuda(*keys, tx, tH[:, :-1], tC, "float32")
 
 
 def test_cuda_wrappers_reject_bad_shapes():

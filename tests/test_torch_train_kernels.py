@@ -183,19 +183,27 @@ def test_unported_routes_raise(monkeypatch):
 
 
 def test_cuda_wrappers_check_before_launch():
-    """The CUDA wrappers refuse float32 compute and bad shapes before any
-    CUDA call, so this holds on the CPU."""
+    """The CUDA wrappers refuse an unknown compute dtype, bad shapes and
+    streams of the wrong dtype before any CUDA call, for both compute
+    dtypes, so this holds on the CPU."""
     data, params, state = make_inputs()
     weights, st, dd = _tensors(data, params, state, torch.float32)
     kw = dict(t0=0, J=J, sigma=SIGMA)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.train_fwd_cuda(weights, st, dd, compute_dtype="float32", **kw)
-    bad = (weights[0][:, :-1],) + weights[1:]
-    with pytest.raises(ValueError, match="W"):
-        ttr.train_fwd_cuda(bad, st, dd, **kw)
-    with pytest.raises(ValueError, match="rho"):
-        ttr.train_fwd_cuda(weights, st, dd, t0=6, J=J, sigma=SIGMA)
-    pr, dr, final, streams = ttr.train_fwd_plain(weights, st, dd, **kw)
-    bad = (streams[0], streams[1].to(torch.bfloat16)) + streams[2:]
-    with pytest.raises(ValueError, match="cs"):
-        ttr.train_bwd_cuda(weights, dd, bad, final, pr, dr, **kw)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ttr.train_fwd_cuda(weights, st, dd, compute_dtype="float16", **kw)
+    wrong_hs = {"bfloat16": torch.float32, "float32": torch.bfloat16}
+    for cdt, other in wrong_hs.items():
+        kwd = dict(kw, compute_dtype=cdt)
+        bad = (weights[0][:, :-1],) + weights[1:]
+        with pytest.raises(ValueError, match="W"):
+            ttr.train_fwd_cuda(bad, st, dd, **kwd)
+        with pytest.raises(ValueError, match="rho"):
+            ttr.train_fwd_cuda(weights, st, dd, **dict(kwd, t0=6))
+        pr, dr, final, streams = ttr.train_fwd_plain(weights, st, dd, **kwd)
+        bad = (streams[0], streams[1].to(torch.bfloat16)) + streams[2:]
+        with pytest.raises(ValueError, match="cs"):
+            ttr.train_bwd_cuda(weights, dd, bad, final, pr, dr, **kwd)
+        # the H stream in the other compute dtype's type
+        bad = (streams[0].to(other),) + streams[1:]
+        with pytest.raises(ValueError, match="hs"):
+            ttr.train_bwd_cuda(weights, dd, bad, final, pr, dr, **kwd)
