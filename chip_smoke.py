@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from ``iadmm_tpu_torch/kernels/csrc`` (first use),
 then runs eight phases at the flagship shape QP_1000_500_500 / h=800, two
-at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50) and four at the
+at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50), four at the
 flagship's float32 precision profile (``configs/qp_1000_500_500.yaml``:
-float32 gates, float32 matvecs):
+float32 gates, float32 matvecs) and two on the segment-recompute training
+route, which the shipped config takes from ``--batch_size 9``:
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16)
       and on a ragged small case;
@@ -76,13 +77,27 @@ float32 gates, float32 matvecs):
       B=8 (the step route over the float32 cell kernel, Stage II
       'fused'), held to the LU Stage-II route as (d)/(e), or, where it is
       further from that, to the float64 LU polish of the same iterates
-      within 4x the float32 LU route's own gap to it; the polish as in (d).
+      within 4x the float32 LU route's own gap to it; the polish as in (d);
+  (o) the segment training kernels at both profiles: over a J=6 chunk in
+      segments of 1, 2 and 3 steps at B=2 and of 2 at B=16, bitwise equal to
+      the stream pair (losses, final state, every gradient leaf, the start
+      state's cotangents), the backward twice bitwise equal, and held to the
+      plain segment pair at (f)/(l)'s limits; timed at J=100 in segments of
+      2, at B=2 and B=16, beside the stream pair;
+  (p) the shipped config through ``cli.train --train_backend fused
+      --batch_size 16`` (40 generated instances: 32 train, 2 chunk
+      updates), at its float32 profile and at the fast one: the run must
+      report the segment route (stream=False, segment_len=2), launch only the
+      segment kernels of the training pair, finish with finite losses and
+      moved parameters; then one chunk update at B=16 on each route from the
+      same params, bitwise equal, with each route's time and peak memory.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before each main
 path and read just after it: (d) and (e) (serving), (g) (training), (j)'s
 training and its ``run_test`` on the two routes (the sparse path), (m)'s
-three CLI runs (the shipped config) and (n) (float32 serving).  The
+three CLI runs (the shipped config), (n) (float32 serving) and each of
+(p)'s two CLI runs (the segment route).  The
 second-to-last line is the per-kernel JSON, the last line ``{"ok": true,
 "device": {...}}``.  Weights are random from a seed (no trained checkpoint
 is in the repository).  Exits non-zero without a CUDA device.  Longer
@@ -443,8 +458,7 @@ def phase_rollout(params, data, report):
 
 def phase_stage2(params, data, sc, xyz, report):
     import torch
-    from iadmm_tpu_torch.kernels import stage2_kernel as s2
-    from iadmm_tpu_torch.kernels.bounds import bound_ms
+    from iadmm_tpu_torch.kernels import bounds, stage2_kernel as s2
     from iadmm_tpu_torch.solvers.step import _schedules
     from iadmm_tpu_torch.types import IterState
     x, y, z = xyz
@@ -475,11 +489,7 @@ def phase_stage2(params, data, sc, xyz, report):
                                            sigma=SIGMA, refine=0), reps=3)
     p_ms = cuda_ms(lambda: s2.stage2_plain(st, data, rho, Ainv, num_iters=N,
                                            sigma=SIGMA, refine=0), reps=3)
-    S = n + m
-    nbytes = (B * S * S * 4 + B * (n * n + m * n) * 4 + B * (2 * n + 4 * m)
-              * 4 + B * (2 * n + 2 * m + 2 * N) * 4)
-    b_ms, b_by = bound_ms(nbytes, f32_ops=N * B * (
-        2.0 * S * S + 2.0 * (n * n + 2 * m * n) + 20.0 * S))
+    b_ms, b_by = bounds.stage2(B, N, n, m, "kkt")
     row = dict(shape=dict(B=B, n=n, m=m, N=N),
                max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs),
@@ -506,7 +516,11 @@ def _counted():
                 train_fwd_f32=(tr.train_fwd_cuda, "launches_f32"),
                 train_bwd=(tr.train_bwd_cuda, "launches"),
                 train_bwd_f32=(tr.train_bwd_cuda, "launches_f32"),
-                bsr=(sparse_matvec.bsr_matvec, "launches"))
+                bsr=(sparse_matvec.bsr_matvec, "launches"),
+                train_fwd_seg=(tr.train_fwd_seg_cuda, "launches"),
+                train_fwd_seg_f32=(tr.train_fwd_seg_cuda, "launches_f32"),
+                train_bwd_seg=(tr.train_bwd_seg_cuda, "launches"),
+                train_bwd_seg_f32=(tr.train_bwd_seg_cuda, "launches_f32"))
 
 
 def zero_counts():
@@ -1594,6 +1608,399 @@ def phase_flagship(report):
     return launches
 
 
+# (o), (p): the segment-recompute route
+SEG_LEN = 2           # pick_segment_len at the flagship (both packages)
+SEG_CHECKS = (1, 2, 3)   # segment lengths of the J=K_CHECK checks
+SEG_BATCH = 16        # the slice's batch: over IADMM_STREAM_HBM from B=9
+# (p): 40 instances, 32 train (2 chunk updates of B=16), 4 val, 4 test
+SEG_DATA, SEG_VAL, SEG_TEST = 40, 4 / 40, 4 / 40
+SEG_DIR = os.path.join(ROOT, "results", "chip_smoke_seg")
+
+
+def seg_forward(weights, state, dd, J, seg, cdt, plain=False):
+    """The segment forward over a J-step chunk from ``state``, as
+    make_fused_chunk_loss runs it: (pr, dr, final, checkpoints)."""
+    import torch
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    kw = dict(sigma=SIGMA, compute_dtype=cdt)
+    B = state[0].shape[0]
+    ckpts, parts = [], []
+    losses = tuple(torch.empty((B, J), device=DEV) for _ in range(2))
+    for s in range(J // seg):
+        ckpts.append(state)
+        if plain:
+            pr, dr, state = tr.train_fwd_seg_plain(weights, state, dd,
+                                                   t0=s * seg, J=seg, **kw)
+            parts.append((pr, dr))
+        else:
+            *_, state = tr.train_fwd_seg_cuda(weights, state, dd,
+                                              t0=s * seg, J=seg,
+                                              losses=losses, col=s * seg,
+                                              **kw)
+    if plain:
+        losses = tuple(torch.cat(v, 1) for v in zip(*parts))
+    return (*losses, state, ckpts)
+
+
+def seg_backward(weights, ckpts, dd, dfinal, d, seg, cdt, plain=False):
+    """The segment backward over the checkpoints, in reverse: (gradients,
+    start-state cotangents)."""
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    bwd = tr.train_bwd_seg_plain if plain else tr.train_bwd_seg_cuda
+    acc, dst = None, dfinal
+    for s in reversed(range(len(ckpts))):
+        acc, dst = bwd(weights, ckpts[s], dd, dst, d, d, t0=s * seg, J=seg,
+                       col=s * seg, acc=acc, sigma=SIGMA, compute_dtype=cdt)
+    return acc, dst
+
+
+def seg_checks(weights, state, dd, segs, cdt, tag):
+    """The segment pair over a J=K_CHECK chunk from ``state``, in segments
+    of each length in ``segs``: bitwise equal to the stream pair on the card
+    (losses, final state, every gradient leaf and the start state's
+    cotangents), the backward twice bitwise equal, one launch a segment
+    each, and held to the plain segment pair at (f)/(l)'s J=K_CHECK limits
+    (the float32 ones widened to 4x the plain pair's own gap to its float64
+    run where larger, measured here on these inputs).  Returns ({seg:
+    gaps}, max |Δ| of the forward outputs, max |Δ| of the gradients)."""
+    import torch
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    prof = TRAIN_PROFILES[cdt]
+    counter = "launches" if cdt == "bfloat16" else "launches_f32"
+    B, J = state[0].shape[0], K_CHECK
+    kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype=cdt)
+    spr, sdr, sfin, sstr = tr.train_fwd_cuda(weights, state, dd, **kw)
+    d = torch.full((B, J), 1.0 / (B * K_ITERS), device=DEV)
+    zero = tuple(torch.zeros_like(f) for f in sfin)
+    sg, sdst = tr.train_bwd_cuda(weights, dd, sstr, zero, d, d, **kw)
+    del sstr
+    ref = (spr, sdr, *sfin, *sg, *sdst)
+    own_fwd, own_grad = [0.0] * len(FWD_OUTPUTS), [0.0] * len(GRAD_KEYS)
+    if prof["f64"]:   # the plain pair's own float32 error, against float64
+        ppr, pdr, pfin, pck = seg_forward(weights, state, dd, J, J, cdt,
+                                          plain=True)
+        pg, _ = seg_backward(weights, pck, dd, zero, d, J, cdt, plain=True)
+        f64 = torch.float64
+        w64, s64, d64 = (tuple(t.to(f64) for t in x)
+                         for x in (weights, state, dd))
+        qpr, qdr, qfin, qck = seg_forward(w64, s64, d64, J, J, cdt,
+                                          plain=True)
+        qg, _ = seg_backward(w64, qck, d64, tuple(t.to(f64) for t in zero),
+                             d.to(f64), J, cdt, plain=True)
+        own_fwd = leaf_gaps((ppr, pdr, *pfin), (qpr, qdr, *qfin))
+        own_grad = leaf_gaps(pg, qg)
+        del pck, qck, pfin, qfin, pg, qg
+    fa, fr = prof["fwd"]
+    names = FWD_OUTPUTS + GRAD_KEYS + tuple(
+        "d" + k for k in ("x", "y", "z", "xv", "H", "C"))
+    checks = {}
+    err_fwd = err_grad = 0.0
+    for seg in segs:
+        f0 = getattr(tr.train_fwd_seg_cuda, counter)
+        b0 = getattr(tr.train_bwd_seg_cuda, counter)
+        kpr, kdr, kfin, ck = seg_forward(weights, state, dd, J, seg, cdt)
+        kg, kdst = seg_backward(weights, ck, dd, zero, d, seg, cdt)
+        torch.cuda.synchronize()
+        if (getattr(tr.train_fwd_seg_cuda, counter) != f0 + J // seg
+                or getattr(tr.train_bwd_seg_cuda, counter) != b0 + J // seg):
+            raise PhaseError(f"{tag} seg={seg}: the wrappers did not launch "
+                             f"one call a segment")
+        mine = (kpr, kdr, *kfin, *kg, *kdst)
+        differ = [k for k, a, b in zip(names, mine, ref)
+                  if not torch.equal(a.reshape(b.shape), b)]
+        if differ:
+            raise PhaseError(f"{tag} seg={seg}: not bitwise equal to the "
+                             f"stream pair in {differ}")
+        again, _ = seg_backward(weights, ck, dd, zero, d, seg, cdt)
+        if not all(torch.equal(a, b) for a, b in zip(kg, again)):
+            raise PhaseError(f"{tag} seg={seg}: two segment backwards "
+                             f"differ")
+        ppr, pdr, pfin, pck = seg_forward(weights, state, dd, J, seg, cdt,
+                                          plain=True)
+        pg, _ = seg_backward(weights, pck, dd, zero, d, seg, cdt, plain=True)
+        errs = [compare(f"{tag} seg={seg} fwd {k}", a, b, max(
+                    fa, MAX_GAP_OVER_ROUNDING * own) * float(b.abs().max()),
+                    fr)
+                for k, a, b, own in zip(FWD_OUTPUTS, (kpr, kdr, *kfin),
+                                        (ppr, pdr, *pfin), own_fwd)]
+        gaps = leaf_gaps(kg, pg)
+        for k, gap, own in zip(GRAD_KEYS, gaps, own_grad):
+            lim = max(prof["leaf"], MAX_GAP_OVER_ROUNDING * own)
+            if not gap <= lim:
+                raise PhaseError(f"{tag} seg={seg}: grad[{k}] gap {gap:.3e} "
+                                 f"to the plain segment pair > {lim:.3e}")
+        e_g = max(float((a.reshape(b.shape) - b).abs().max())
+                  for a, b in zip(kg, pg))
+        err_fwd, err_grad = max(err_fwd, *(e[0] for e in errs)), max(
+            err_grad, e_g)
+        checks[seg] = dict(fwd_rel_gap=dict(zip(FWD_OUTPUTS,
+                                                (e[1] for e in errs))),
+                           grad_gap=dict(zip(GRAD_KEYS, gaps)),
+                           bitwise_vs_stream_pair=True, bitwise_repeat=True)
+        del ck, pck
+    if prof["f64"]:
+        checks["plain_vs_float64_fwd_gap"] = dict(zip(FWD_OUTPUTS, own_fwd))
+        checks["plain_vs_float64_grad_gap"] = dict(zip(GRAD_KEYS, own_grad))
+    return checks, err_fwd, err_grad
+
+
+def phase_seg_kernels(params, data, data16, report, cdt="bfloat16"):
+    """(o): the segment pair against its plain versions and, bitwise,
+    against the stream pair on the card, at compute dtype ``cdt``: at
+    J=K_CHECK in segments of SEG_CHECKS at B=2 and of SEG_LEN at B=16 (the
+    main path's shape); timed at J=100 in segments of SEG_LEN, at B=2 and
+    B=16."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    prof = TRAIN_PROFILES[cdt]
+    weights, state, dd = train_inputs(params, data)
+    B, n = data.p.shape
+    m = data.num_constr
+    h = HIDDEN
+    fa, fr = prof["fwd"]
+    tag = "o" + ("" if cdt == "bfloat16" else " float32")
+    checks, err_fwd, err_grad = seg_checks(weights, state, dd, SEG_CHECKS,
+                                           cdt, tag)
+    checks16, e_f, e_g = seg_checks(*train_inputs(params, data16),
+                                    (SEG_LEN,), cdt, tag + f" B={SEG_BATCH}")
+    err_fwd, err_grad = max(err_fwd, e_f), max(err_grad, e_g)
+    torch.cuda.empty_cache()
+    # J = K_ITERS in segments of SEG_LEN: times at B=2 and B=16
+    J = K_ITERS
+
+    def timings(w, st, dat, reps):
+        Bb = st[0].shape[0]
+        M = Bb * (n + m)
+        dJ = torch.full((Bb, J), 1.0 / (Bb * K_ITERS), device=DEV)
+        out = dict(B=Bb)
+        out["fwd_ms"] = cuda_ms(lambda: seg_forward(w, st, dat, J, SEG_LEN,
+                                                    cdt), reps=reps)
+        *_, fin, ck = seg_forward(w, st, dat, J, SEG_LEN, cdt)
+        z0 = tuple(torch.zeros_like(f) for f in fin)
+        out["bwd_ms"] = cuda_ms(lambda: seg_backward(w, ck, dat, z0, dJ,
+                                                     SEG_LEN, cdt), reps=reps)
+        del ck
+        out["fwd_plain_ms"] = cuda_ms(
+            lambda: seg_forward(w, st, dat, J, SEG_LEN, cdt, plain=True),
+            reps=1, warmup=0)
+        *_, pck = seg_forward(w, st, dat, J, SEG_LEN, cdt, plain=True)
+        out["bwd_plain_ms"] = cuda_ms(
+            lambda: seg_backward(w, pck, dat, z0, dJ, SEG_LEN, cdt,
+                                 plain=True), reps=1, warmup=0)
+        del pck
+        skw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype=cdt)
+        out["stream_fwd_ms"] = cuda_ms(lambda: tr.train_fwd_cuda(
+            w, st, dat, **skw), reps=1)
+        kstr = tr.train_fwd_cuda(w, st, dat, **skw)[3]
+        out["stream_bwd_ms"] = cuda_ms(lambda: tr.train_bwd_cuda(
+            w, dat, kstr, z0, dJ, dJ, **skw), reps=1)
+        del kstr
+        wdt = torch.bfloat16 if cdt == "bfloat16" else torch.float32
+        Hk = torch.randn((M, h), device=DEV).to(wdt)
+        Uc = params["U"].to(wdt)
+        dpre = torch.randn((M, 4 * h), device=DEV).to(wdt)
+        out["fwd_library_ms"] = J * cuda_ms(lambda: torch.matmul(Hk, Uc),
+                                            reps=10)
+        out["bwd_library_ms"] = J * cuda_ms(
+            lambda: (torch.matmul(Hk, Uc), torch.matmul(Hk, Uc),
+                     torch.matmul(dpre, Uc.T), torch.matmul(Hk.T, dpre)),
+            reps=5)
+        del Hk, dpre
+        out["fwd_bound_ms"], out["fwd_bound_by"] = bounds.train_fwd_seg(
+            Bb, J, SEG_LEN, n, m, h, K_ITERS, cdt)
+        out["bwd_bound_ms"], out["bwd_bound_by"] = bounds.train_bwd_seg(
+            Bb, J, SEG_LEN, n, m, h, K_ITERS, cdt)
+        return out
+
+    b2 = timings(weights, state, dd, 2)
+    torch.cuda.empty_cache()
+    b16 = timings(*train_inputs(params, data16), 1)
+    torch.cuda.empty_cache()
+    row = dict(shape=dict(B=B, n=n, m=m, h=h, J_check=K_CHECK, J=J,
+                          segment_len=SEG_LEN, B_large=SEG_BATCH),
+               compute_dtype=cdt, J6_checks=checks,
+               J6_checks_B16=checks16,
+               max_abs_err_fwd=err_fwd, max_abs_err_grad=err_grad,
+               tol=(f"J={K_CHECK}, segments of {SEG_CHECKS} at B={B} and of "
+                    f"{SEG_LEN} at B={SEG_BATCH}: losses, final "
+                    f"state, every gradient leaf and the start-state "
+                    f"cotangents bitwise equal to the stream pair on the "
+                    f"card; against the plain segment pair as "
+                    f"{prof['tag'][0]}: fwd {fa:g}·max|ref| + {fr:g}|ref|, "
+                    f"grads per leaf <= {prof['leaf']:g}"
+                    + (" (widened to 4x the plain pair's own float64 gap "
+                       "where larger)" if prof["f64"] else "")
+                    + "; the segment backward twice bitwise equal"),
+               B2=b2, B16=b16,
+               library_note=(f"J x torch.matmul in {cdt} (TF32 off): H·U "
+                             f"(fwd); H·U twice, dpre·Uᵀ, Hᵀ·dpre (bwd: the "
+                             f"recompute and the reverse step): a yardstick "
+                             f"of the GEMMs, not of the kernels"))
+    say("o segment kernels" + ("" if cdt == "bfloat16" else " float32"),
+        **row)
+    report["seg_kernels" + ("" if cdt == "bfloat16" else "_f32")] = row
+
+
+def seg_vs_stream_update(params, data16, cdt):
+    """One chunk update (make_train_chunk: loss, backward, Adam) at B=16,
+    J=100 on the route the rule picks (segments) and on the stream route,
+    from the same params: loss, gradients, updated params and state
+    bitwise equal; each route's time and peak device memory."""
+    import torch
+    from iadmm_tpu_torch.kernels.train_rollout import make_fused_chunk_loss
+    from iadmm_tpu_torch.train.harness import make_optimizer, \
+        make_train_chunk
+    from iadmm_tpu_torch.types import init_state
+    B, n = data16.p.shape
+    m = data16.num_constr
+    rows, res = {}, {}
+    for name, route in (("segment", {}), ("stream", dict(stream=True))):
+        fn = make_fused_chunk_loss(num_var=n, num_constr=m, batch=B,
+                                   hidden=HIDDEN, sigma=SIGMA,
+                                   chunk_len=K_ITERS, outer_T=K_ITERS,
+                                   K_total=K_ITERS, compute_dtype=cdt,
+                                   **route)
+        want = (False, SEG_LEN) if name == "segment" else (True, K_ITERS)
+        if (fn.stream, fn.segment_len) != want:
+            raise PhaseError(f"p {name}: route {fn.stream, fn.segment_len}, "
+                             f"expected {want}")
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        st = init_state(B, n, m, HIDDEN, device=DEV)
+        body = make_train_chunk(None, make_optimizer(p, 5e-5), K_ITERS,
+                                K_ITERS, SIGMA, loss_fn=fn)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        times = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_st, loss = body(p, st, data16, 0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated()
+                res[name] = (loss, [p[k].grad.clone() for k in GRAD_KEYS],
+                             [p[k].detach().clone() for k in GRAD_KEYS],
+                             new_st)
+        rows[name] = dict(chunk_update_ms=times,
+                          max_memory_allocated_bytes=peak,
+                          allocated_before_bytes=before,
+                          peak_over_before_bytes=peak - before)
+        del p, body, new_st
+    (sl, sg, sp, ss), (rl, rg, rp, rs) = res["segment"], res["stream"]
+    same = dict(loss=torch.equal(sl, rl),
+                grads=all(torch.equal(a, b) for a, b in zip(sg, rg)),
+                params=all(torch.equal(a, b) for a, b in zip(sp, rp)),
+                state=all(torch.equal(getattr(ss, k), getattr(rs, k))
+                          for k in ("x", "y", "z", "xv", "H", "C")))
+    if not bool(torch.isfinite(sl)) or not all(same.values()):
+        raise PhaseError(f"p {cdt}: segment vs stream chunk update at "
+                         f"B={B}: loss {float(sl)} vs {float(rl)}, bitwise "
+                         f"equal {same}")
+    return dict(batch=B, J=K_ITERS, profile=cdt, loss=float(sl),
+                bitwise_equal=same, **{k: v for k, v in rows.items()})
+
+
+def phase_seg_train(params, data16, report):
+    """(p): the shipped config through ``cli.train --train_backend fused
+    --batch_size 16`` at both profiles (the segment route, chosen by the
+    rule), then one chunk update at B=16 on each route.  Returns the
+    launches of each CLI run (the main path)."""
+    import glob
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.cli import train as cli_train
+    from iadmm_tpu_torch.problems import generate
+    from iadmm_tpu_torch.problems.io import dataset_path, save_npz
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    from iadmm_tpu_torch.train import checkpoint as ckpt
+    from iadmm_tpu_torch.train.harness import split_ids
+    from iadmm_tpu_torch.utils.logging import RunLog
+    shutil.rmtree(SEG_DIR, ignore_errors=True)
+    root = os.path.join(SEG_DIR, "data")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ds = generate("QP", num_var=N_VAR, num_ineq=N_INEQ, num_eq=N_EQ,
+                  data_size=SEG_DATA, seed=43)
+    save_npz(ds, dataset_path(root, "QP", N_VAR, N_INEQ, N_EQ))
+    gen_s = time.perf_counter() - t0
+    del ds
+    n_train = len(split_ids(SEG_DATA, SEG_VAL, SEG_TEST, 17)[0])
+    chunks = n_train // SEG_BATCH
+    n_segs = K_ITERS // SEG_LEN
+    common = ["--config", FLAGSHIP_CONFIG, "--data_size", str(SEG_DATA),
+              "--val_frac", str(SEG_VAL), "--test_frac", str(SEG_TEST),
+              "--data_root", root, "--eq_tol", "1e9", "--ineq_tol", "1e9",
+              "--train_backend", "fused", "--batch_size", str(SEG_BATCH),
+              "--num_epoch", "1"]
+    runs, launches = {}, {}
+    for cdt, extra in (("float32", []),
+                       ("bfloat16", ["--gate_dtype", "bfloat16",
+                                     "--matvec_mode", "bf16"])):
+        d = os.path.join(SEG_DIR, cdt)
+        zero_counts()   # the slice's path, counted from 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(cli_train, common + extra + ["--save_dir", d],
+                f"cli_train_seg_{cdt}.txt")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        launches[cdt] = counts
+        (logfile,) = glob.glob(os.path.join(d, "*", "*.log.jsonl"))
+        log = RunLog(logfile).read()
+        route = [(r["stream"], r["segment_len"]) for r in log
+                 if r["kind"] == "fused_route"]
+        losses = [r["train_loss"] for r in log if r["kind"] == "epoch"]
+        if route != [(False, SEG_LEN)]:
+            raise PhaseError(f"p {cdt}: the fused route was {route}, "
+                             f"expected [(False, {SEG_LEN})]")
+        if len(losses) != 1 or not all(np.isfinite(losses)):
+            raise PhaseError(f"p {cdt}: epoch losses {losses}")
+        sfx = "" if cdt == "bfloat16" else "_f32"
+        for k in ("train_fwd_seg", "train_bwd_seg"):
+            if counts[k + sfx] != chunks * n_segs:
+                raise PhaseError(f"p {cdt}: {k + sfx} launched "
+                                 f"{counts[k + sfx]} segments, expected "
+                                 f"{chunks} chunks x {n_segs}")
+        stray = [k for k, v in counts.items() if v and k.startswith("train")
+                 and k not in ("train_fwd_seg" + sfx, "train_bwd_seg" + sfx)]
+        if stray:
+            raise PhaseError(f"p {cdt}: also launched {stray}")
+        path = ckpt.checkpoint_path(
+            d, os.path.basename(os.path.dirname(logfile)),
+            os.path.basename(logfile)[:-len(".log.jsonl")])
+        trained = ckpt.load_checkpoint(path)["params"]
+        p0 = lstm_init(torch.Generator().manual_seed(17), 2, HIDDEN,
+                       K_ITERS, device="cpu")
+        moved = max(float(np.abs(np.asarray(trained[k]) - p0[k].numpy())
+                          .max()) for k in p0)
+        if not moved > 0:
+            raise PhaseError(f"p {cdt}: the parameters did not change")
+        runs[cdt] = dict(cli_s=secs, fused_route=route, train_loss=losses,
+                         chunks=chunks, segments_per_chunk=n_segs,
+                         launches={k: v for k, v in counts.items() if v},
+                         max_param_change=moved,
+                         checkpoint=os.path.relpath(path, ROOT))
+    shutil.rmtree(SEG_DIR, ignore_errors=True)
+    updates = {cdt: seg_vs_stream_update(params, data16, cdt)
+               for cdt in ("bfloat16", "float32")}
+    row = dict(config=("configs/qp_1000_500_500.yaml with --train_backend "
+                       f"fused --batch_size {SEG_BATCH} --num_epoch 1; "
+                       f"{SEG_DATA} generated instances ({n_train} train, "
+                       f"val/test fractions {SEG_VAL}/{SEG_TEST}); the fast "
+                       "profile adds --gate_dtype bfloat16 --matvec_mode "
+                       "bf16"),
+               dataset_s=gen_s, cli=runs, chunk_update_B16=updates)
+    say("p segment route", **row)
+    report["seg_train"] = row
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -1692,6 +2099,20 @@ def main() -> int:
     say("float32 serving path launches", **{k: v for k, v in nf.items()
                                              if v})
 
+    # The segment-recompute route: (o) its kernels, (p) the shipped config
+    # at --batch_size 16, where the rule takes it
+    data_t = qp_batch(TRAIN_BATCH, seed=2)
+    scaled_t, _ = scale_batch(data_t)
+    scaled16, _ = scale_batch(qp_batch(SEG_BATCH, seed=5))
+    for cdt in ("bfloat16", "float32"):
+        phase_seg_kernels(params, scaled_t, scaled16, report, cdt)  # (o)
+    del data_t, scaled_t
+    torch.cuda.empty_cache()
+    p = phase_seg_train(params, scaled16, report)                   # (p)
+    del scaled16
+    say("segment route path launches",
+        **{cdt: {k: v for k, v in c.items() if v} for cdt, c in p.items()})
+
     def entry(name, src, replaces, key, launches):
         r = report[key]
         return dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -1722,6 +2143,21 @@ def main() -> int:
                  bound_by=tk["bwd_bound_by"],
                  library_ms=tk["bwd_library_ms"])]
 
+    def seg_entries(suffix, key, launches):
+        sk = report[key]
+        t = sk["B16"]   # the main path's shape
+        return [
+            dict(name=f"train_{d}_seg" + suffix, route="cuda",
+                 source=train_src.format(d),
+                 replaces=f"iadmm_tpu/kernels/train_rollout.py:{line}",
+                 launches=launches[f"train_{d}_seg" + suffix],
+                 max_abs_err=sk[err], ms=t[f"{d}_ms"],
+                 plain_ms=t[f"{d}_plain_ms"], bound_ms=t[f"{d}_bound_ms"],
+                 bound_by=t[f"{d}_bound_by"],
+                 library_ms=t[f"{d}_library_ms"])
+            for d, line, err in (("fwd", 147, "max_abs_err_fwd"),
+                                 ("bwd", 664, "max_abs_err_grad"))]
+
     kernels = [
         entry("lstm_cell", "iadmm_tpu_torch/kernels/csrc/lstm_cell.cu",
               "iadmm_tpu/kernels/lstm_cell.py:49", "cell", cell_all),
@@ -1741,6 +2177,8 @@ def main() -> int:
               "iadmm_tpu/kernels/lstm_cell.py:49", "cell_f32",
               m["cell_f32"] + nf["cell_f32"]),
         *train_entries("_f32", "train_kernels_f32", m),
+        *seg_entries("", "seg_kernels", p["bfloat16"]),
+        *seg_entries("_f32", "seg_kernels_f32", p["float32"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

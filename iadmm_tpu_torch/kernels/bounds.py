@@ -3,11 +3,13 @@
     python -m iadmm_tpu_torch.kernels.bounds
 
 prints the bounds of the TPU kernels the port has not ported yet, from
-their shapes: the segment pair of ``train_rollout.py`` at the flagship
-chunk (B=2, J=100, S=2000, h=800).  ``chip_smoke.py`` computes the ported
-kernels' bounds from the inputs of its run with :func:`cell`,
-:func:`train_fwd`, :func:`train_bwd` (each at the bf16 or the float32
-profile), :func:`bsr_matvec` and ``bound_ms``.
+their shapes: Stage II's ``'direct'`` and ``'cg'`` solvers of
+``stage2_kernel.py`` at the serving shape (B=8, N=20 polish steps,
+QP_1000_500_500, 100 CG iterations).  ``chip_smoke.py`` computes the
+ported kernels' bounds from the inputs of its run with :func:`cell`,
+:func:`train_fwd`, :func:`train_bwd`, :func:`train_fwd_seg`,
+:func:`train_bwd_seg` (each at the bf16 or the float32 profile),
+:func:`stage2`, :func:`bsr_matvec` and ``bound_ms``.
 
 A bound is the larger of two times: the bytes the work must move (each
 input read once, each output written once) over the memory rate, and its
@@ -95,24 +97,71 @@ def train_bwd(B, J, n, m, h, K, dtype="bfloat16"):
                              J * M * (4.0 * 2 * 4 * h + 40.0 * h)))
 
 
-def segment_pair(B=2, J=100, n=1000, m=1000, h=800):
-    """Bounds of ``_fwd_seg_kernel`` and ``_bwd_seg_kernel`` for one chunk:
-    per step the gate GEMM (2·M·h·4h) and the KKT matvecs, the backward
-    recomputing the forward; the data and the chunk's start H, C (float32)
-    read once."""
+def _state_bytes(B, n, m, h):
+    """Bytes of one training state (x, y, z, xv; H and C in float32), as
+    the segment route keeps its checkpoints."""
+    return B * ((n + m) * h * 8 + (2 * n + 3 * m) * 4)
+
+
+def train_fwd_seg(B, J, seg, n, m, h, K, dtype="bfloat16"):
+    """Bound of the segment route's forward over a chunk of J steps in
+    J/seg segments: the data and the start state read once, the J/seg
+    segment-end states written (the checkpoints and the final state), the
+    (B, J) losses written; one gate GEMM and three KKT matvecs a step."""
+    data, _, mv, gemm = _chunk(B, J, n, m, h, K, dtype)
     M = B * (n + m)
-    gemm = 2.0 * M * h * 4 * h
-    mv = 2.0 * B * (n * n + 2 * m * n)
-    data = B * (n * n + m * n) * 2 + (2 * 4 * h + h * 4 * h + h) * 2
-    ckpt = M * h * 8
-    return {
-        "fwd_seg (train_rollout.py:147)": bound_ms(
-            data + ckpt, bf16_ops=J * (gemm + 3 * mv),
-            f32_ops=J * M * (2.0 * 2 * 4 * h + 20.0 * h)),
-        "bwd_seg (train_rollout.py:664)": bound_ms(
-            data + ckpt + (h * 4 * h + 2 * 4 * h) * 4,
-            bf16_ops=J * (4 * gemm + 8 * mv),
-            f32_ops=J * M * (6.0 * 2 * 4 * h + 60.0 * h))}
+    states = (J // seg + 1) * _state_bytes(B, n, m, h)
+    return bound_ms(data + states + B * J * 8,
+                    **_rates(dtype, J * (gemm + 3 * mv),
+                             J * M * (2.0 * 2 * 4 * h + 20.0 * h)))
+
+
+def train_bwd_seg(B, J, seg, n, m, h, K, dtype="bfloat16"):
+    """Bound of the segment route's backward over a chunk of J steps in
+    J/seg segments: the data, the J/seg checkpoints, the loss cotangents
+    and the final state's cotangents read once, the start state's
+    cotangents and the float32 gradients written; four GEMMs a step (the
+    recompute's gate GEMM and the reverse step's three) and eight KKT
+    matvecs (two recomputed, six of the reverse step)."""
+    data, _, mv, gemm = _chunk(B, J, n, m, h, K, dtype)
+    M = B * (n + m)
+    states = (J // seg + 2) * _state_bytes(B, n, m, h)
+    grads = (2 * 4 * h + h * 4 * h + 5 * h + 1 + 2 * J) * 4
+    return bound_ms(data + states + B * J * 8 + grads,
+                    **_rates(dtype, J * (4 * gemm + 8 * mv),
+                             J * M * (6.0 * 2 * 4 * h + 60.0 * h)))
+
+
+def stage2(B, N, n, m, solver="kkt", cg_iters=100, refine=None):
+    """Bound of N Stage-II polish steps over B instances, all in float32
+    (the TPU kernel runs them at ``Precision.HIGHEST``): Q, A0 and the
+    solver's operand read once (Ã⁻¹ (n+m)² for ``'kkt'``, M⁻¹ n² for
+    ``'direct'``, the Jacobi diagonal n for ``'cg'``), the start state read
+    and the state and residual traces written.  Per step the solve
+    (``'kkt'``: one Ã⁻¹ matvec and ``refine`` passes of Ã and Ã⁻¹;
+    ``'direct'``: one M⁻¹ matvec and ``refine`` passes of M = Q + σI +
+    A0ᵀρA0 and M⁻¹; ``'cg'``: cg_iters + 1 matvecs of M, the most its loop
+    runs), the matvecs of the right-hand side and the residuals, and the
+    elementwise work."""
+    if refine is None:
+        refine = 0 if solver == "kkt" else 2
+    S = n + m
+    q, a = 2.0 * n * n, 2.0 * m * n      # one Q and one A0 (or A0ᵀ) matvec
+    mv_m = q + 2 * a
+    if solver == "kkt":
+        operand, solve = S * S, 2.0 * S * S + refine * (2.0 * S * S + mv_m)
+        rest = mv_m + 20.0 * S
+    elif solver == "direct":
+        operand, solve = n * n, 2.0 * n * n + refine * (2.0 * n * n + mv_m)
+        rest = mv_m + 2 * a + 20.0 * S
+    elif solver == "cg":
+        operand, solve = n, (cg_iters + 1) * (mv_m + 10.0 * n)
+        rest = mv_m + 2 * a + 20.0 * S
+    else:
+        raise ValueError(f"unknown stage2 solver {solver!r}")
+    nbytes = 4 * B * (operand + n * n + m * n + (2 * n + 4 * m)
+                      + (2 * n + 2 * m + 2 * N))
+    return bound_ms(nbytes, f32_ops=N * B * (solve + rest))
 
 
 def stored_tiles(vals) -> int:
@@ -133,9 +182,14 @@ def bsr_matvec(tiles, B, m, n, tm=8, tn=128, tile_bytes=2):
     return bound_ms(nbytes, f32_ops=ops)
 
 
-def unported():
-    return {k: dict(bound_ms=v[0], bound_by=v[1])
-            for k, v in segment_pair().items()}
+def unported(B=8, N=20, n=1000, m=1000, cg_iters=100):
+    """Bounds of the TPU kernels not ported yet, at the serving shape."""
+    out = {}
+    for solver in ("direct", "cg"):
+        ms, by = stage2(B, N, n, m, solver, cg_iters)
+        out[f"_stage2_kernel solver={solver!r} (stage2_kernel.py:59)"] = \
+            dict(bound_ms=ms, bound_by=by)
+    return out
 
 
 if __name__ == "__main__":

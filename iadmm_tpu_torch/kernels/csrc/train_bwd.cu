@@ -41,6 +41,15 @@
 // J·3·2·B·S·h·4h = 6.14 TFLOP, 6.21 ms at 989 TFLOP/s (bf16) or 91.7 ms at
 // 67 TFLOP/s (float32), against 1.92 GB (bf16 H) or 2.56 GB (float32 H) of
 // streams read back (0.57 / 0.76 ms at 3.35 TB/s): operations.
+//
+// iadmm_train_bwd_seg replaces _bwd_seg_kernel, the backward of the segment
+// route: one call per segment, in reverse over the chunk, recomputes the
+// segment's J steps from its checkpoint into a (J+1)-slot buffer with
+// admm_step.cuh's iteration (the forward's launches without the losses),
+// then runs the reverse steps above over that buffer.  Four GEMMs a step
+// (the recompute's and the three of the reverse step): about one forward
+// more than the stream backward, for a buffer of J+1 slots instead of a
+// chunk's streams.
 
 #include "admm_step.cuh"
 #include "cell_gemm.cuh"
@@ -59,7 +68,7 @@ __global__ void head_kernel(const float* __restrict__ partial,
                             const float* __restrict__ p,
                             const float* __restrict__ z_new,
                             const float* __restrict__ dpr,
-                            const float* __restrict__ ddr, int k, int J,
+                            const float* __restrict__ ddr, int col, int L,
                             float* __restrict__ dv, int n, int m) {
   __shared__ float scratch[33];
   const int b = blockIdx.x, S = n + m;
@@ -77,8 +86,8 @@ __global__ void head_kernel(const float* __restrict__ partial,
   }
   s1 = block_sum(s1, scratch);
   s2 = block_sum(s2, scratch);
-  const float c1 = dpr[b * J + k] / fmaxf(sqrtf(s1), 1e-30f);
-  const float c2 = ddr[b * J + k] / fmaxf(sqrtf(s2), 1e-30f);
+  const float c1 = dpr[b * L + col] / fmaxf(sqrtf(s1), 1e-30f);
+  const float c2 = ddr[b * L + col] / fmaxf(sqrtf(s2), 1e-30f);
   for (int j = threadIdx.x; j < n; j += blockDim.x) dvb[j] *= c2;
   for (int i = threadIdx.x; i < m; i += blockDim.x) dvb[n + i] *= c1;
 }
@@ -332,14 +341,14 @@ __global__ void tail_kernel(const float* __restrict__ drr,
 }
 
 // dρ_t = Σ drv·ρ_mult · σ'(ρ_t), dα_t = Σ dal · 2σ'(α_t) over every
-// instance, written at slot k; db_h += the step's −Σ dxv (scal[0]).
+// instance, written at slot col; db_h += the step's −Σ dxv (scal[0]).
 __global__ void sched_kernel(const float* __restrict__ drv,
                              const float* __restrict__ rhom,
                              const float* __restrict__ dal,
                              const float* __restrict__ scal,
                              const float* __restrict__ rho_raw,
                              const float* __restrict__ alpha_raw, int t,
-                             int k, float* __restrict__ drho,
+                             int col, float* __restrict__ drho,
                              float* __restrict__ dalpha,
                              float* __restrict__ dbh, int n, int m, int B) {
   __shared__ float scratch[33];
@@ -350,8 +359,8 @@ __global__ void sched_kernel(const float* __restrict__ drv,
   s2 = block_sum(s2, scratch);
   if (threadIdx.x == 0) {
     const float rt = sigmoidf(rho_raw[t]), at = sigmoidf(alpha_raw[t]);
-    drho[k] = s1 * rt * (1.0f - rt);
-    dalpha[k] = s2 * 2.0f * at * (1.0f - at);
+    drho[col] = s1 * rt * (1.0f - rt);
+    dalpha[col] = s2 * 2.0f * at * (1.0f - at);
     dbh[0] += scal[0];
   }
 }
@@ -369,20 +378,22 @@ void weight_gemm(const float* A, int lda, const float* B, int ldb, float* C,
   gemm32::launch<A_COL, B_COL, ACC>(A, lda, B, ldb, C, ldc, M, N, K, s);
 }
 
-// Reverse step k with T data and weights (see the entry point).
+// Reverse step k (slots k and k+1 of the streams) at schedule index t, its
+// loss cotangents and dρ, dα at column col of the (B, L) dpr, ddr and the
+// (L,) drho, dalpha, with T data and weights (see the entry points).
 template <typename T>
 int bwd_step(
-    int k, int t, const void* Q, const void* A0, const void* p,
-    const void* zl, const void* zu, const void* rhom, const void* rho_raw,
-    const void* alpha_raw, const void* W, const void* U, const void* b,
-    const void* Wh, const void* hs, const void* cs, const void* xs,
-    const void* ys, const void* zs, const void* xvs, const void* dpr,
-    const void* ddr, void* dx, void* dy, void* dz, void* dxv, void* sH,
-    void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh, void* drho,
-    void* dalpha, void* r, void* g, void* dv, void* dg, void* drr, void* dun,
-    void* drv, void* dal, void* scal, void* mv_partial, void* rowdot,
-    void* dpre, void* pxv, void* pg, void* pdb, void* pdw0, void* pdw1,
-    void* pdwh, int B, int n, int m, int h, int J, float sigma,
+    int k, int t, int col, int L, const void* Q, const void* A0,
+    const void* p, const void* zl, const void* zu, const void* rhom,
+    const void* rho_raw, const void* alpha_raw, const void* W, const void* U,
+    const void* b, const void* Wh, const void* hs, const void* cs,
+    const void* xs, const void* ys, const void* zs, const void* xvs,
+    const void* dpr, const void* ddr, void* dx, void* dy, void* dz, void* dxv,
+    void* sH, void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh,
+    void* drho, void* dalpha, void* r, void* g, void* dv, void* dg, void* drr,
+    void* dun, void* drv, void* dal, void* scal, void* mv_partial,
+    void* rowdot, void* dpre, void* pxv, void* pg, void* pdb, void* pdw0,
+    void* pdw1, void* pdwh, int B, int n, int m, int h, float sigma,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int S = n + m, M = B * S, h4 = 4 * h;
@@ -441,8 +452,8 @@ int bwd_step(
                                    s);
   head_kernel<<<B, 256, 0, s>>>(part, rd, nch, P.p, z_n,
                                 static_cast<const float*>(dpr),
-                                static_cast<const float*>(ddr), k, J, dvf, n,
-                                m);
+                                static_cast<const float*>(ddr), col, L, dvf,
+                                n, m);
   kkt::colpass<T, admm::kRound<T>>(Q, A0, dvf, S, dvf + n, S, part, rd, n, m,
                                    B, s);
   adjoint_kernel<<<eb, 256, 0, s>>>(part, rd, nch, dvf, dxf, dyf, dzf, dxvf,
@@ -479,11 +490,74 @@ int bwd_step(
   admm::kkt_apply<T>(P, t, drf, duf, ks, s);
   tail_kernel<<<eb, 256, 0, s>>>(drf, duf, dgf, rf, xv_k, y_k, rr, rm, t,
                                  sigma, dxf, dyf, dzf, dxvf, drvf, n, m, B);
-  sched_kernel<<<1, 1024, 0, s>>>(drvf, rm, dalf, scalf, rr, ar, t, k,
+  sched_kernel<<<1, 1024, 0, s>>>(drvf, rm, dalf, scalf, rr, ar, t, col,
                                   static_cast<float*>(drho),
                                   static_cast<float*>(dalpha),
                                   static_cast<float*>(dbh), n, m, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One segment (see iadmm_train_bwd_seg) with T data and weights.
+template <typename T>
+int bwd_seg(
+    int t0, int col, int L, const void* Q, const void* A0, const void* p,
+    const void* zl, const void* zu, const void* rhom, const void* rho_raw,
+    const void* alpha_raw, const void* W, const void* U, const void* b,
+    const void* Wh, const void* bh, void* hs, void* cs, void* xs, void* ys,
+    void* zs, void* xvs, const void* dpr, const void* ddr, void* dx, void* dy,
+    void* dz, void* dxv, void* sH, void* sC, void* dW, void* dU, void* db,
+    void* dWh, void* dbh, void* drho, void* dalpha, void* r, void* g,
+    void* dv, void* dg, void* drr, void* dun, void* drv, void* dal,
+    void* scal, void* mv_partial, void* rowdot, void* dpre, void* pxv,
+    void* pg, void* pdb, void* pdw0, void* pdw1, void* pdwh, int B, int n,
+    int m, int h, int J, float sigma, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * (n + m);
+  const size_t slab = (size_t)M * h;
+  const admm::Problem P{Q,
+                        A0,
+                        static_cast<const float*>(p),
+                        static_cast<const float*>(zl),
+                        static_cast<const float*>(zu),
+                        static_cast<const float*>(rhom),
+                        static_cast<const float*>(rho_raw),
+                        static_cast<const float*>(alpha_raw),
+                        B,
+                        n,
+                        m,
+                        sigma};
+  const admm::Weights w{W, U, static_cast<const float*>(b), Wh,
+                        static_cast<const float*>(bh), h};
+  const admm::KktScratch ks{static_cast<float*>(mv_partial),
+                            static_cast<float*>(rowdot)};
+  auto* hst = static_cast<T*>(hs);
+  auto* csf = static_cast<float*>(cs);
+  auto* xvf = static_cast<float*>(xvs);
+  auto* xf = static_cast<float*>(xs);
+  auto* yf = static_cast<float*>(ys);
+  auto* zf = static_cast<float*>(zs);
+  // The recompute: the forward's iterations from the checkpoint in slot 0,
+  // without the losses (the TPU kernel's fstep computes none).  pxv is the
+  // cell's delta scratch here (the same shape); the reverse sweep reuses it.
+  for (int k = 0; k < J; ++k) {
+    admm::iteration<T>(
+        P, w, t0 + k, xvf + (size_t)k * M, xf + (size_t)k * B * n,
+        yf + (size_t)k * B * m, zf + (size_t)k * B * m, hst + k * slab,
+        csf + k * slab, xvf + (size_t)(k + 1) * M,
+        xf + (size_t)(k + 1) * B * n, yf + (size_t)(k + 1) * B * m,
+        zf + (size_t)(k + 1) * B * m, hst + (k + 1) * slab,
+        csf + (k + 1) * slab, nullptr, static_cast<float*>(r),
+        static_cast<float*>(g), static_cast<float*>(pxv), ks, s);
+  }
+  int err = static_cast<int>(cudaGetLastError());
+  for (int k = J - 1; k >= 0 && err == 0; --k)
+    err = bwd_step<T>(k, t0 + k, col + k, L, Q, A0, p, zl, zu, rhom, rho_raw,
+                      alpha_raw, W, U, b, Wh, hs, cs, xs, ys, zs, xvs, dpr,
+                      ddr, dx, dy, dz, dxv, sH, sC, dW, dU, db, dWh, dbh,
+                      drho, dalpha, r, g, dv, dg, drr, dun, drv, dal, scal,
+                      mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
+                      pdwh, B, n, m, h, sigma, stream);
+  return err;
 }
 
 }  // namespace
@@ -514,11 +588,46 @@ int iadmm_train_bwd_step(
     void* pdwh, int B, int n, int m, int h, int J, int f32, float sigma,
     void* stream) {
   auto run = f32 ? &bwd_step<float> : &bwd_step<__nv_bfloat16>;
-  return run(k, t, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, b, Wh,
-             hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH, sC, dW,
-             dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun, drv, dal,
-             scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1, pdwh, B,
-             n, m, h, J, sigma, stream);
+  return run(k, t, k, J, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, b,
+             Wh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH, sC,
+             dW, dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun, drv,
+             dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
+             pdwh, B, n, m, h, sigma, stream);
+}
+
+// Replaces _bwd_seg_kernel (train_rollout.py:664): one segment of J steps,
+// schedule indices t0 … t0+J−1, of the segment route's backward.  hs
+// (J+1, B·S, h) in the dtype of Q, cs (J+1, B·S, h), xs (J+1,B,n), ys, zs
+// (J+1,B,m), xvs (J+1,B,S) float32: the segment buffer, its slot 0 the
+// segment's checkpoint (H rounded as the gate GEMM consumes it); bh (1,)
+// float32.  First the recompute: J forward iterations of admm_step.cuh
+// fill slots 1 … J (no losses).  Then J reverse steps of iadmm_train_bwd_step
+// over that buffer, k = J−1 … 0, with dpr, ddr (B, L) read at column col + k
+// and dρ, dα written at col + k of drho, dalpha (L,).  The carries dx … sC
+// enter as the cotangents of the segment's final state and leave as those
+// of its start state; dW … dbh are added to in place, so over the segments
+// of a chunk, in reverse, they take the same sums in the same order as the
+// stream route: on the same inputs the two give bitwise-equal gradients.
+// Data, weights, carries, accumulators and scratch as in
+// iadmm_train_bwd_step.
+int iadmm_train_bwd_seg(
+    int t0, int col, int L, const void* Q, const void* A0, const void* p,
+    const void* zl, const void* zu, const void* rhom, const void* rho_raw,
+    const void* alpha_raw, const void* W, const void* U, const void* b,
+    const void* Wh, const void* bh, void* hs, void* cs, void* xs, void* ys,
+    void* zs, void* xvs, const void* dpr, const void* ddr, void* dx, void* dy,
+    void* dz, void* dxv, void* sH, void* sC, void* dW, void* dU, void* db,
+    void* dWh, void* dbh, void* drho, void* dalpha, void* r, void* g,
+    void* dv, void* dg, void* drr, void* dun, void* drv, void* dal,
+    void* scal, void* mv_partial, void* rowdot, void* dpre, void* pxv,
+    void* pg, void* pdb, void* pdw0, void* pdw1, void* pdwh, int B, int n,
+    int m, int h, int J, int f32, float sigma, void* stream) {
+  auto run = f32 ? &bwd_seg<float> : &bwd_seg<__nv_bfloat16>;
+  return run(t0, col, L, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, b,
+             Wh, bh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH,
+             sC, dW, dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun,
+             drv, dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0,
+             pdw1, pdwh, B, n, m, h, J, sigma, stream);
 }
 
 }  // extern "C"

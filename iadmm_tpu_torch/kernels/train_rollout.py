@@ -1,18 +1,27 @@
 """Fused TBPTT training chunk: forward and hand-derived backward kernels.
 
-Replaces the stream pair of ``iadmm_tpu/kernels/train_rollout.py``:
-``_fwd_stream_kernel`` (J learned iterations plus the per-step primal and
-dual residual losses, writing the per-step state streams) and
-``_bwd_stream_kernel`` (the reverse sweep over those streams, no recompute
-of the forward).  On CUDA tensors :func:`make_fused_chunk_loss` launches
-``csrc/train_fwd.cu`` once per step of the chunk and ``csrc/train_bwd.cu``
-once per reverse step; see their headers for the design.  Bounds on the
-H100 at B=2, S=n+m=2000, h=800, J=100, both set by the gate GEMMs'
-operations: forward 2.1 ms (one GEMM a step) and backward 6.2 ms (three)
-at the bf16 tensor-core rate, 30.6 ms and 91.7 ms at the float32 rate.
-On CPU tensors it runs :func:`train_fwd_plain` and :func:`train_bwd_plain`,
-the same two functions in plain PyTorch, line for line with the TPU
-kernel's ``step`` and ``bstep`` and with its bf16 rounding points.
+Replaces both kernel pairs of ``iadmm_tpu/kernels/train_rollout.py``:
+
+- the stream pair, ``_fwd_stream_kernel`` (J learned iterations plus the
+  per-step primal and dual residual losses, writing the per-step state
+  streams) and ``_bwd_stream_kernel`` (the reverse sweep over those
+  streams, no recompute of the forward).  On CUDA tensors
+  :func:`make_fused_chunk_loss` launches ``csrc/train_fwd.cu`` once per
+  step of the chunk and ``csrc/train_bwd.cu`` once per reverse step.
+- the segment-recompute pair, ``_fwd_seg_kernel`` (J steps from a
+  checkpoint, no stream) and ``_bwd_seg_kernel`` (recompute the segment
+  from its checkpoint, then the reverse sweep), taken where a chunk's
+  streams do not fit (:func:`stream_bytes`), or on request (``seg``,
+  ``stream=False``).  One call of each entry point per segment of J steps.
+
+See the CUDA sources' headers for the design.  Bounds on the H100 at B=2,
+S=n+m=2000, h=800, J=100, set by the gate GEMMs' operations: forward
+2.1 ms (one GEMM a step) and backward 6.2 ms (three; the segment backward
+8.3 ms, four) at the bf16 tensor-core rate, 30.6, 91.7 and 122.3 ms at the
+float32 rate (``bounds.py``).  On CPU tensors the same functions run in
+plain PyTorch (:func:`train_fwd_plain`, :func:`train_bwd_plain` and the
+segment pair built from them), line for line with the TPU kernels' ``step``,
+``fstep`` and ``bstep`` and with their bf16 rounding points.
 
 Numerics (``compute_dtype="bfloat16"``, the fast profile): Q, A0, W, U,
 W_h and every vector rounded to bf16 before each product, float32 sums;
@@ -24,8 +33,10 @@ the state (float64 in the tests that hold the hand-derived backward against
 autograd); its CUDA kernels take float32 operands, stream H in float32 and
 run every product in float32 FFMA (no TF32).  Q is taken as symmetric, as
 the TPU kernel's backward takes it (``Q·v`` is formed as ``vᵀQ``).
-Launches are counted per compute dtype: ``train_fwd_cuda.launches`` and
-``train_bwd_cuda.launches`` (bf16), ``.launches_f32`` (float32).
+Launches are counted per wrapper and compute dtype: ``.launches`` (bf16)
+and ``.launches_f32`` (float32) of ``train_fwd_cuda`` and
+``train_bwd_cuda`` (one a step) and of ``train_fwd_seg_cuda`` and
+``train_bwd_seg_cuda`` (one a segment).
 
 Gradients flow to ``W, U, b, W_h, b_h, rho, alpha`` only; the state and the
 problem data get none, as ``_package_grads`` gives none.  The ``rho`` and
@@ -34,7 +45,12 @@ No 128-lane padding: the shapes are the problem's own.
 
 Streams, step-major (slot k of step k, slot J the final state):
 ``hs (J+1, B, S, h)`` (in the compute dtype), ``cs (J+1, B, S, h)``,
-``xs (J+1, B, n)``, ``ys``, ``zs (J+1, B, m)``, ``xvs (J+1, B, S)``.
+``xs (J+1, B, n)``, ``ys``, ``zs (J+1, B, m)``, ``xvs (J+1, B, S)``.  The
+segment route keeps instead each segment's start state (x, y, z, xv, H,
+C; H and C in the working dtype) and, inside its backward, one segment's
+streams.  Both routes compute the same function: the same steps, the same
+sums in the same order (the weight gradients accumulate across segments
+in place), so on the same inputs they agree bitwise.
 """
 
 from __future__ import annotations
@@ -52,6 +68,45 @@ from .lstm_cell import CELL_KEYS, check_cell_weights
 _GRAD_KEYS = CELL_KEYS + ("rho", "alpha")
 _COMPUTE_DTYPES = ("bfloat16", "float32")
 _CDT = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _tile_rows(S: int) -> int:
+    """The TPU kernels' token-axis tile (S a multiple of 128 there)."""
+    for r in (512, 256, 128):
+        if S % r == 0:
+            return r
+    return S
+
+
+def pick_segment_len(n_pad: int, m_pad: int, hidden: int, chunk_len: int,
+                     budget: float = 110e6) -> int:
+    """The JAX package's rule (its ``train_rollout.py:971``): the largest
+    divisor of ``chunk_len``, at most 16, whose backward-kernel VMEM
+    estimate fits ``budget``; ``n_pad``, ``m_pad`` are the 128-padded sizes.
+
+    The budget is a TPU core's VMEM.  The CUDA segment backward keeps its
+    (J+1)-slot buffer in device memory and has nothing that needs it; the
+    rule is kept so that both packages pick the same segment length (2 at
+    QP_1000_500_500, h=800, K=100)."""
+    S = n_pad + m_pad
+    hp = _round_up(hidden, 128)
+    R = _tile_rows(S)
+    fixed = (4 * (n_pad * n_pad + m_pad * n_pad)   # Q, A0 bf16 2x-buffered
+             + 2 * hp * 4 * hidden                 # U bf16
+             + 4 * hp * 4 * hidden                 # dU f32 output window
+             + 2 * S * hp * 4                      # sH, sC carries f32
+             + 8 * S * 128 * 4                     # (S,1) lane-padded cols
+             + 10 * R * hp * 4)                    # tile-loop live values
+    per_j = S * hp * (2 + 4) + S * 128 * 4         # Hs bf16 + Cs f32 + xvs
+    best = 1
+    for j in range(1, min(chunk_len, 16) + 1):
+        if chunk_len % j == 0 and fixed + (j + 1) * per_j <= budget:
+            best = j
+    return best
 
 
 def _rounder(compute_dtype: str, wd: torch.dtype):
@@ -144,13 +199,18 @@ def train_fwd_plain(weights, state, data, *, t0: int, J: int, sigma: float,
 
 
 def train_bwd_plain(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
-                    J: int, sigma: float, compute_dtype: str = "bfloat16"):
+                    J: int, sigma: float, compute_dtype: str = "bfloat16",
+                    col: int = 0, acc=None):
     """Plain PyTorch version of the backward kernel: the hand-derived
     reverse sweep over the streams of :func:`train_fwd_plain`.
 
     dfinal: cotangents of the final state (x, y, z, xv, H, C); dpr, ddr
-    (B, J): of the losses.  Returns ((dW, dU, db, dW_h, db_h, drho (J,),
-    dalpha (J,)), cotangents of the start state)."""
+    (B, L): of the losses, step k's at column ``col + k`` (L = J and col 0
+    for a whole chunk).  ``acc``: gradients (dW, dU, db, dW_h, db_h,
+    drho (L,), dalpha (L,)) to add this sweep's to, as the segment route
+    sums over its segments; zeros where None.  Returns ((dW, dU, db, dW_h,
+    db_h, drho, dalpha), cotangents of the start state), dρ and dα of step
+    k at ``col + k``."""
     W, U, b, W_h, b_h, rho, alpha = weights
     hs, cs, xs, ys, zs, xvs = streams
     wd = cs.dtype
@@ -162,13 +222,10 @@ def train_bwd_plain(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
     b = b.to(wd)
     dx, dy, dz, dxv, sH, sC = (t.to(wd) for t in dfinal)
     dpr, ddr = dpr.to(wd), ddr.to(wd)
-    dW = torch.zeros_like(Wc)
-    dU = torch.zeros_like(Uc)
-    db = torch.zeros_like(b)
-    dWh = torch.zeros_like(Whc)
-    dbh = torch.zeros(1, dtype=wd, device=b.device)
-    drho = torch.zeros(J, dtype=wd, device=b.device)
-    dalpha = torch.zeros(J, dtype=wd, device=b.device)
+    if acc is None:
+        acc = _zero_grads(h, dpr.shape[1], wd, b.device)
+    dW, dU, db, dWh, dbh = (a.to(wd) for a in acc[:5])
+    drho, dalpha = (a.to(wd).clone() for a in acc[5:])
 
     for k in reversed(range(J)):
         rho_raw, alpha_raw = rho[t0 + k].to(wd), alpha[t0 + k].to(wd)
@@ -192,8 +249,9 @@ def train_bwd_plain(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
         v2 = mv_q(x_new) + p + mv_a0t(y_new)
         pr_n = torch.sqrt((v1 * v1).sum(-1, keepdim=True))
         dr_n = torch.sqrt((v2 * v2).sum(-1, keepdim=True))
-        dv1 = dpr[:, k:k + 1] / torch.clamp(pr_n, min=1e-30) * v1
-        dv2 = ddr[:, k:k + 1] / torch.clamp(dr_n, min=1e-30) * v2
+        c = col + k
+        dv1 = dpr[:, c:c + 1] / torch.clamp(pr_n, min=1e-30) * v1
+        dv2 = ddr[:, c:c + 1] / torch.clamp(dr_n, min=1e-30) * v2
         dxn = dx + mv_a0t(dv1) + mv_q(dv2)
         dyn = dy + mv_a0(dv2)
         dzn = dz - dv1
@@ -258,9 +316,47 @@ def train_bwd_plain(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
 
         s_rho = torch.sigmoid(rho_raw)
         s_alpha = torch.sigmoid(alpha_raw)
-        drho[k] = (drho_vec * rhom).sum() * s_rho * (1.0 - s_rho)
-        dalpha[k] = dalpha_s * 2.0 * s_alpha * (1.0 - s_alpha)
+        drho[c] = (drho_vec * rhom).sum() * s_rho * (1.0 - s_rho)
+        dalpha[c] = dalpha_s * 2.0 * s_alpha * (1.0 - s_alpha)
     return (dW, dU, db, dWh, dbh, drho, dalpha), (dx, dy, dz, dxv, sH, sC)
+
+
+def _grad_shapes(h: int, L: int):
+    """dW (2, 4h), dU (h, 4h), db (4h,), dW_h (h, 1), db_h (1,), drho and
+    dalpha (L,)."""
+    return ((2, 4 * h), (h, 4 * h), (4 * h,), (h, 1), (1,), (L,), (L,))
+
+
+def _zero_grads(h: int, L: int, dtype, device):
+    return tuple(torch.zeros(s, dtype=dtype, device=device)
+                 for s in _grad_shapes(h, L))
+
+
+def train_fwd_seg_plain(weights, state, data, *, t0: int, J: int,
+                        sigma: float, compute_dtype: str = "bfloat16"):
+    """Plain PyTorch version of the segment forward (the TPU kernel's
+    ``_fwd_seg_kernel``): J steps from the checkpoint ``state``.  Returns
+    (pr (B, J), dr (B, J), final state), the final H unrounded; keeps no
+    stream."""
+    pr, dr, final, _ = train_fwd_plain(weights, state, data, t0=t0, J=J,
+                                       sigma=sigma,
+                                       compute_dtype=compute_dtype)
+    return pr, dr, final
+
+
+def train_bwd_seg_plain(weights, state, data, dfinal, dpr, ddr, *, t0: int,
+                        J: int, sigma: float, compute_dtype: str = "bfloat16",
+                        col: int = 0, acc=None):
+    """Plain PyTorch version of the segment backward (``_bwd_seg_kernel``):
+    the segment's streams recomputed from its checkpoint ``state`` (H as the
+    gate GEMM consumes it, C in the working dtype: the TPU kernel's
+    ``fstep``), then the reverse sweep of :func:`train_bwd_plain` over them
+    (its ``bstep``).  Arguments and result as :func:`train_bwd_plain`, with
+    the checkpoint in place of the streams."""
+    kw = dict(t0=t0, J=J, sigma=sigma, compute_dtype=compute_dtype)
+    streams = train_fwd_plain(weights, state, data, **kw)[3]
+    return train_bwd_plain(weights, data, streams, dfinal, dpr, ddr, col=col,
+                           acc=acc, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -271,6 +367,10 @@ _FWD_ARGS = ([_build.I] * 2 + [_build.P] * 27 + [_build.I] * 6
              + [_build.F, _build.P])
 _BWD_ARGS = ([_build.I] * 2 + [_build.P] * 51 + [_build.I] * 6
              + [_build.F, _build.P])
+# the segment entry points: t0, col, L first; the backward also takes b_h
+_FWD_SEG_ARGS = [_build.I] + _FWD_ARGS
+_BWD_SEG_ARGS = ([_build.I] * 3 + [_build.P] * 52 + [_build.I] * 6
+                 + [_build.F, _build.P])
 
 
 def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
@@ -304,6 +404,15 @@ def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
     return B, n, m, h
 
 
+def _check_float32(named, shapes):
+    """Raise unless each tensor is a contiguous float32 of its shape."""
+    for (k, t), shape in zip(named.items(), shapes):
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != tuple(shape)):
+            raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)}, expected a "
+                             f"contiguous float32 {tuple(shape)}")
+
+
 def _prep_cuda(weights, data, compute_dtype):
     """Kernel operands: matrices and cell weights in the compute dtype,
     float32 vectors, all contiguous."""
@@ -318,6 +427,56 @@ def _prep_cuda(weights, data, compute_dtype):
     return mats + vecs + wts
 
 
+def _carries(state, compute_dtype, slots):
+    """(hs, cs, xs, ys, zs, xvs) with ``slots`` slots, step-major, H in the
+    compute dtype and the rest float32, ``state`` copied into slot 0."""
+    x, y, z, xv, H, C = state
+    f32 = torch.float32
+    out = []
+    for t, dt in ((H, _CDT[compute_dtype]), (C, f32), (x, f32), (y, f32),
+                  (z, f32), (xv, f32)):
+        buf = torch.empty((slots, *t.shape), dtype=dt, device=t.device)
+        buf[0].copy_(t)
+        out.append(buf)
+    return tuple(out)
+
+
+def _fwd_scratch(B, n, m, h, dev):
+    """r, g, mv_partial, rowdot, cell_partial of the forward entry points."""
+    S = n + m
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return (empty(B, S), empty(B, S),
+            empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
+            empty(B, m), empty((h + _build.CELL_HB - 1) // _build.CELL_HB,
+                               B * S))
+
+
+def _bwd_scratch(B, n, m, h, compute_dtype, dev):
+    """The scratch of the backward entry points, in their order."""
+    S, M, h4 = n + m, B * (n + m), 4 * h
+    n_mt = (M + 127) // 128
+    n_ut = (h + _build.CELL_HB - 1) // _build.CELL_HB
+
+    def empty(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=dev)
+    return ([empty(B, S) for _ in range(6)]             # r g dv dg drr dun
+            + [empty(B, m), empty(B, n), empty(1),       # drv dal scal
+               empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
+               empty(B, m), empty(M, h4, dt=_CDT[compute_dtype]),
+               empty(n_ut, M), empty(n_ut, M),           # pxv pg
+               empty(n_mt, h4), empty(n_mt, h4), empty(n_mt, h4),
+               empty(n_mt, h)])                          # pdb pdw0 pdw1 pdwh
+
+
+def _count(fn, compute_dtype):
+    if compute_dtype == "float32":
+        fn.launches_f32 += 1
+    else:
+        fn.launches += 1
+
+
 def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
                    compute_dtype: str = "bfloat16"):
     """The forward kernel on CUDA tensors; same contract as
@@ -325,45 +484,27 @@ def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
     B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
                                     t0)
     dev = state[0].device
-    S, M = n + m, B * (n + m)
     f32 = torch.float32
     ops = _prep_cuda(weights, data, compute_dtype)
-    x, y, z, xv, H, C = state
-    hs = torch.empty((J + 1, B, S, h), dtype=_CDT[compute_dtype], device=dev)
-    cs = torch.empty((J + 1, B, S, h), dtype=f32, device=dev)
-    xs = torch.empty((J + 1, B, n), dtype=f32, device=dev)
-    ys = torch.empty((J + 1, B, m), dtype=f32, device=dev)
-    zs = torch.empty((J + 1, B, m), dtype=f32, device=dev)
-    xvs = torch.empty((J + 1, B, S), dtype=f32, device=dev)
-    for dst, src in ((hs, H), (cs, C), (xs, x), (ys, y), (zs, z), (xvs, xv)):
-        dst[0].copy_(src)
-    H_final = torch.empty((B, S, h), dtype=f32, device=dev)
+    streams = _carries(state, compute_dtype, J + 1)
+    H_final = torch.empty((B, n + m, h), dtype=f32, device=dev)
     pr = torch.empty((B, J), dtype=f32, device=dev)
     dr = torch.empty((B, J), dtype=f32, device=dev)
-    r, g = (torch.empty((B, S), dtype=f32, device=dev) for _ in range(2))
-    mv_partial = torch.empty((B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS,
-                              n), dtype=f32, device=dev)
-    rowdot = torch.empty((B, m), dtype=f32, device=dev)
-    cell_partial = torch.empty(((h + _build.CELL_HB - 1) // _build.CELL_HB, M),
-                               dtype=f32, device=dev)
     fn = _build.function("train_fwd", "iadmm_train_fwd_step", _FWD_ARGS)
     stream = _build.stream_ptr(dev)
-    fixed = [t.data_ptr() for t in (*ops, hs, cs, xs, ys, zs, xvs)]
-    tail = [pr.data_ptr(), dr.data_ptr(), r.data_ptr(), g.data_ptr(),
-            mv_partial.data_ptr(), rowdot.data_ptr(), cell_partial.data_ptr()]
+    fixed = [t.data_ptr() for t in (*ops, *streams)]
+    tail = [t.data_ptr() for t in (pr, dr, *_fwd_scratch(B, n, m, h, dev))]
     f32_flag = int(compute_dtype == "float32")
     for k in range(J):
         code = fn(k, t0 + k, *fixed,
                   H_final.data_ptr() if k == J - 1 else None, *tail,
                   B, n, m, h, J, f32_flag, float(sigma), stream)
         _build.check(code, "iadmm_train_fwd_step")
-        if f32_flag:
-            train_fwd_cuda.launches_f32 += 1
-        else:
-            train_fwd_cuda.launches += 1
+        _count(train_fwd_cuda, compute_dtype)
+    hs, cs, xs, ys, zs, xvs = streams
     final = (xs[J].clone(), ys[J].clone(), zs[J].clone(), xvs[J].clone(),
              H_final, cs[J].clone())
-    return pr, dr, final, (hs, cs, xs, ys, zs, xvs)
+    return pr, dr, final, streams
 
 
 train_fwd_cuda.launches = 0      # steps launched, bf16 compute
@@ -373,7 +514,8 @@ train_fwd_cuda.launches_f32 = 0  # steps launched, float32 compute
 def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
                    J: int, sigma: float, compute_dtype: str = "bfloat16"):
     """The backward kernel on CUDA tensors; same contract as
-    :func:`train_bwd_plain`."""
+    :func:`train_bwd_plain` (one chunk: dpr, ddr (B, J), fresh
+    gradients)."""
     hs, cs, xs, ys, zs, xvs = streams
     state0 = (xs[0], ys[0], zs[0], xvs[0], cs[0], cs[0])
     B, n, m, h = _check_cuda_inputs(weights, state0, data, compute_dtype, J,
@@ -392,61 +534,132 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
             raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)}, expected a "
                              f"contiguous {dt} {shape}")
     dev = xs.device
-    M, h4 = B * S, 4 * h
-    f32, cdt = torch.float32, _CDT[compute_dtype]
+    f32 = torch.float32
     ops = _prep_cuda(weights, data, compute_dtype)
-    dx, dy, dz, dxv, sH, sC = (t.to(f32).contiguous().clone()
-                               for t in dfinal)
+    carries = tuple(t.to(f32).contiguous().clone() for t in dfinal)
     dpr = dpr.to(f32).contiguous()
     ddr = ddr.to(f32).contiguous()
-    dW = torch.zeros((2, h4), dtype=f32, device=dev)
-    dU = torch.zeros((h, h4), dtype=f32, device=dev)
-    db = torch.zeros(h4, dtype=f32, device=dev)
-    dWh = torch.zeros(h, dtype=f32, device=dev)
-    dbh = torch.zeros(1, dtype=f32, device=dev)
-    drho = torch.zeros(J, dtype=f32, device=dev)
-    dalpha = torch.zeros(J, dtype=f32, device=dev)
-
-    def empty(*shape, dt=f32):
-        return torch.empty(shape, dtype=dt, device=dev)
-
-    n_mt = (M + 127) // 128
-    n_ut = (h + _build.CELL_HB - 1) // _build.CELL_HB
-    scratch = [empty(B, S) for _ in range(6)]           # r g dv dg drr dun
-    scratch += [empty(B, m), empty(B, n), empty(1),      # drv dal scal
-                empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
-                empty(B, m), empty(M, h4, dt=cdt),       # rowdot dpre
-                empty(n_ut, M), empty(n_ut, M),          # pxv pg
-                empty(n_mt, h4), empty(n_mt, h4), empty(n_mt, h4),
-                empty(n_mt, h)]
+    grads = _zero_grads(h, J, f32, dev)
     fn = _build.function("train_bwd", "iadmm_train_bwd_step", _BWD_ARGS)
     stream = _build.stream_ptr(dev)
     # ops[:12]: Q A0 p zl zu rhom rho alpha W U b Wh (the backward does
     # not read b_h)
     ptrs = [t.data_ptr() for t in (
-        *ops[:12], hs, cs, xs, ys, zs, xvs, dpr, ddr,
-        dx, dy, dz, dxv, sH, sC, dW, dU, db, dWh, dbh, drho, dalpha,
-        *scratch)]
+        *ops[:12], *streams, dpr, ddr, *carries, *grads,
+        *_bwd_scratch(B, n, m, h, compute_dtype, dev))]
     f32_flag = int(compute_dtype == "float32")
     for k in reversed(range(J)):
         code = fn(k, t0 + k, *ptrs, B, n, m, h, J, f32_flag, float(sigma),
                   stream)
         _build.check(code, "iadmm_train_bwd_step")
-        if f32_flag:
-            train_bwd_cuda.launches_f32 += 1
-        else:
-            train_bwd_cuda.launches += 1
-    grads = (dW, dU, db, dWh[:, None], dbh, drho, dalpha)
-    return grads, (dx, dy, dz, dxv, sH.reshape(B, S, h), sC.reshape(B, S, h))
+        _count(train_bwd_cuda, compute_dtype)
+    return grads, carries
 
 
 train_bwd_cuda.launches = 0      # reverse steps launched, bf16 compute
 train_bwd_cuda.launches_f32 = 0  # reverse steps launched, float32 compute
 
 
+def train_fwd_seg_cuda(weights, state, data, *, t0: int, J: int,
+                       sigma: float, compute_dtype: str = "bfloat16",
+                       losses=None, col: int = 0):
+    """The segment forward kernel on CUDA tensors; same contract as
+    :func:`train_fwd_seg_plain`.  ``losses``: the chunk's (pr, dr), each a
+    contiguous float32 (B, L), whose columns [col, col + J) it writes and
+    returns, in place of fresh (B, J) ones."""
+    B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
+                                    t0)
+    dev = state[0].device
+    f32 = torch.float32
+    if losses is None:
+        losses = tuple(torch.empty((B, J), dtype=f32, device=dev)
+                       for _ in range(2))
+    L = losses[0].shape[-1]
+    if col < 0 or col + J > L:
+        raise ValueError(f"columns [{col}, {col + J}) do not fit losses of "
+                         f"{L} columns")
+    _check_float32(dict(pr=losses[0], dr=losses[1]), ((B, L), (B, L)))
+    ops = _prep_cuda(weights, data, compute_dtype)
+    bufs = _carries(state, compute_dtype, 2)
+    H_final = torch.empty((B, n + m, h), dtype=f32, device=dev)
+    fn = _build.function("train_fwd", "iadmm_train_fwd_seg", _FWD_SEG_ARGS)
+    code = fn(t0, col, L, *(t.data_ptr() for t in (
+        *ops, *bufs, H_final, *losses, *_fwd_scratch(B, n, m, h, dev))),
+        B, n, m, h, J, int(compute_dtype == "float32"), float(sigma),
+        _build.stream_ptr(dev))
+    _build.check(code, "iadmm_train_fwd_seg")
+    _count(train_fwd_seg_cuda, compute_dtype)
+    hs, cs, xs, ys, zs, xvs = bufs
+    last = J % 2
+    final = (xs[last].clone(), ys[last].clone(), zs[last].clone(),
+             xvs[last].clone(), H_final, cs[last].clone())
+    return losses[0], losses[1], final
+
+
+train_fwd_seg_cuda.launches = 0      # segments launched, bf16 compute
+train_fwd_seg_cuda.launches_f32 = 0  # segments launched, float32 compute
+
+
+def train_bwd_seg_cuda(weights, state, data, dfinal, dpr, ddr, *, t0: int,
+                       J: int, sigma: float, compute_dtype: str = "bfloat16",
+                       col: int = 0, acc=None):
+    """The segment backward kernel on CUDA tensors; same contract as
+    :func:`train_bwd_seg_plain`.  ``acc``, where given, holds contiguous
+    float32 tensors and is added to in place (the chunk's sums across its
+    segments); the cotangents ``dfinal`` are left as they are."""
+    B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
+                                    t0)
+    dev = state[0].device
+    f32 = torch.float32
+    dpr = dpr.to(f32).contiguous()
+    ddr = ddr.to(f32).contiguous()
+    L = dpr.shape[-1]
+    if col < 0 or col + J > L:
+        raise ValueError(f"columns [{col}, {col + J}) do not fit loss "
+                         f"cotangents of {L} columns")
+    _check_float32(dict(dpr=dpr, ddr=ddr), ((B, L), (B, L)))
+    if acc is None:
+        acc = _zero_grads(h, L, f32, dev)
+    _check_float32(dict(zip(("dW", "dU", "db", "dW_h", "db_h", "drho",
+                             "dalpha"), acc)),
+                   _grad_shapes(h, L))
+    for k, d, t in zip(("x", "y", "z", "xv", "H", "C"), dfinal, state):
+        if d.shape != t.shape:
+            raise ValueError(f"d{k}: shape {tuple(d.shape)}, expected "
+                             f"{tuple(t.shape)}")
+    carries = tuple(t.to(f32).contiguous().clone() for t in dfinal)
+    ops = _prep_cuda(weights, data, compute_dtype)
+    bufs = _carries(state, compute_dtype, J + 1)
+    fn = _build.function("train_bwd", "iadmm_train_bwd_seg", _BWD_SEG_ARGS)
+    code = fn(t0, col, L, *(t.data_ptr() for t in (
+        *ops, *bufs, dpr, ddr, *carries, *acc,
+        *_bwd_scratch(B, n, m, h, compute_dtype, dev))),
+        B, n, m, h, J, int(compute_dtype == "float32"), float(sigma),
+        _build.stream_ptr(dev))
+    _build.check(code, "iadmm_train_bwd_seg")
+    _count(train_bwd_seg_cuda, compute_dtype)
+    return tuple(acc), carries
+
+
+train_bwd_seg_cuda.launches = 0      # segments launched, bf16 compute
+train_bwd_seg_cuda.launches_f32 = 0  # segments launched, float32 compute
+
+
+def _param_grads(weights, grads, t0):
+    """The chunk's parameter gradients: the cell's five in their own shapes
+    and dtypes, dρ and dα placed at [t0, t0 + L) of the schedules."""
+    out = [g.reshape(w.shape).to(w.dtype)
+           for w, g in zip(weights[:5], grads[:5])]
+    for w, g in zip(weights[5:], grads[5:]):
+        full = torch.zeros_like(w)
+        full[t0:t0 + g.shape[0]] = g.to(w.dtype)
+        out.append(full)
+    return out
+
+
 class _TrainChunk(torch.autograd.Function):
-    """Forward kernel in ``forward``, backward kernel in ``backward``; the
-    plain pair on CPU tensors."""
+    """The stream route: forward kernel in ``forward``, backward kernel in
+    ``backward``; the plain pair on CPU tensors."""
 
     @staticmethod
     def forward(ctx, spec, t0, W, U, b, W_h, b_h, rho, alpha,
@@ -467,27 +680,73 @@ class _TrainChunk(torch.autograd.Function):
         bwd = train_bwd_cuda if dpr.is_cuda else train_bwd_plain
         grads, _ = bwd(weights, data, streams, dfinal, dpr, ddr, t0=ctx.t0,
                        **ctx.spec)
-        dW, dU, db, dWh, dbh, drho_c, dalpha_c = grads
+        return (None, None, *_param_grads(weights, grads, ctx.t0)) + \
+            (None,) * 12
+
+
+class _SegmentChunk(torch.autograd.Function):
+    """The segment route: ``n_segs`` segments of J steps, each segment's
+    start state kept as a checkpoint (the JAX package's ``lax.scan`` stacks
+    them); the backward runs over the segments in reverse, carrying the
+    state cotangents and summing the gradients.  The segment kernels on
+    CUDA tensors, the plain segment pair on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, spec, t0, n_segs, W, U, b, W_h, b_h, rho, alpha,
+                x, y, z, xv, H, C, Q, A0, p, zl, zu, rhom):
+        weights = (W, U, b, W_h, b_h, rho, alpha)
+        state = (x, y, z, xv, H, C)
+        data = (Q, A0, p, zl, zu, rhom)
+        J = spec["J"]
+        ckpts, losses = [], []
+        if x.is_cuda:
+            chunk = tuple(torch.empty((x.shape[0], n_segs * J),
+                                      dtype=torch.float32, device=x.device)
+                          for _ in range(2))
+        for s in range(n_segs):
+            ckpts.append(state)
+            kw = dict(t0=t0 + s * J, **spec)
+            if x.is_cuda:
+                *_, state = train_fwd_seg_cuda(weights, state, data,
+                                               losses=chunk, col=s * J, **kw)
+            else:
+                pr, dr, state = train_fwd_seg_plain(weights, state, data,
+                                                    **kw)
+                losses.append((pr, dr))
+        if not x.is_cuda:
+            chunk = tuple(torch.cat(v, 1) for v in zip(*losses))
+        ctx.spec, ctx.t0, ctx.n_segs = spec, t0, n_segs
+        ctx.save_for_backward(*weights, *data,
+                              *(t for ck in ckpts for t in ck))
+        return (*chunk, *state)
+
+    @staticmethod
+    def backward(ctx, dpr, ddr, *dfinal):
+        saved = ctx.saved_tensors
+        weights, data, ckpts = saved[:7], saved[7:13], saved[13:]
+        bwd = train_bwd_seg_cuda if dpr.is_cuda else train_bwd_seg_plain
         J = ctx.spec["J"]
-        out = []
-        for w, gr in zip(weights[:5], (dW, dU, db, dWh, dbh)):
-            out.append(gr.reshape(w.shape).to(w.dtype))
-        for w, gr in zip(weights[5:], (drho_c, dalpha_c)):
-            full = torch.zeros_like(w)
-            full[ctx.t0:ctx.t0 + J] = gr.to(w.dtype)
-            out.append(full)
-        return (None, None, *out) + (None,) * 12
+        acc, dstate = None, dfinal
+        for s in reversed(range(ctx.n_segs)):
+            acc, dstate = bwd(weights, ckpts[6 * s:6 * s + 6], data, dstate,
+                              dpr, ddr, t0=ctx.t0 + s * J, col=s * J,
+                              acc=acc, **ctx.spec)
+        return (None, None, None, *_param_grads(weights, acc, ctx.t0)) + \
+            (None,) * 12
 
 
 def stream_bytes(batch: int, chunk_len: int, num_var: int, num_constr: int,
                  hidden: int) -> int:
-    """Bytes of the H (bf16) and C (float32) streams of one chunk: 6 bytes
-    an element whatever the compute dtype, as the JAX package counts them
-    (its ``train_rollout.py:1345``), so that both packages pick the same
-    kernel pair.  The float32 profile's streams really take 8 bytes an
-    element (float32 H): 2.59 GB at B=2, J=100, S=2000, h=800, against the
-    1.94 GB counted here."""
-    return batch * (chunk_len + 1) * (num_var + num_constr) * hidden * 6
+    """Bytes of a chunk's H (bf16) and C (float32) streams as the JAX
+    package counts them to pick its kernel pair (its
+    ``train_rollout.py:1340-1348``): 6 bytes an element of n, m and h each
+    padded to 128, whatever the compute dtype, so that both packages pick
+    the same pair.  The port stores the streams unpadded, and at the
+    float32 profile 8 bytes an element (float32 H): 2.59 GB at B=2, J=100,
+    S=2000, h=800, where this counts 2.23 GB."""
+    return (batch * (chunk_len + 1)
+            * (_round_up(num_var, 128) + _round_up(num_constr, 128))
+            * _round_up(hidden, 128) * 6)
 
 
 def make_fused_chunk_loss(*, num_var: int, num_constr: int, batch: int,
@@ -499,28 +758,34 @@ def make_fused_chunk_loss(*, num_var: int, num_constr: int, batch: int,
     ``fn(params, state, data, t0) -> (loss, state')`` with
     ``loss = (pr + dr).mean(0).sum() / outer_T``.
 
-    ``stream=None`` picks the stream pair when its H/C streams fit
-    ``IADMM_STREAM_HBM`` bytes (default 10e9), the JAX package's rule
-    counted on the port's unpadded sizes (:func:`stream_bytes`).  The
-    segment-recompute pair (``stream=False``, ``seg > 0``, or streams that
-    do not fit) and data parallelism (``mesh``) are not ported."""
+    ``stream=None`` picks the stream pair when no ``seg`` is given and its
+    streams fit ``IADMM_STREAM_HBM`` bytes (default 10e9) as
+    :func:`stream_bytes` counts them, the JAX package's rule; else the
+    segment pair, with segments of ``seg`` steps, or of
+    :func:`pick_segment_len`'s.  ``seg`` must divide ``chunk_len``.
+    ``fn.stream`` and ``fn.segment_len`` say which.  Data parallelism
+    (``mesh``) is not ported."""
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel fused training (mesh) is not ported to PyTorch "
             "yet; see ROADMAP.md (Queue 1, distribution)")
-    nbytes = stream_bytes(batch, chunk_len, num_var, num_constr, hidden)
     if stream is None:
         budget = float(os.environ.get("IADMM_STREAM_HBM", 10e9))
-        stream = seg == 0 and nbytes <= budget
-    if seg or not stream:
-        raise NotImplementedError(
-            f"the segment-recompute training kernels (_fwd_seg_kernel, "
-            f"_bwd_seg_kernel; stream=False, seg>0, or {nbytes} stream bytes "
-            f"over IADMM_STREAM_HBM) are not ported to PyTorch yet; see "
-            f"ROADMAP.md (Queue 2)")
-    spec = dict(J=chunk_len, sigma=float(sigma), compute_dtype=compute_dtype)
+        stream = seg == 0 and stream_bytes(batch, chunk_len, num_var,
+                                           num_constr, hidden) <= budget
+    if stream:
+        J = chunk_len
+    else:
+        J = seg or pick_segment_len(_round_up(num_var, 128),
+                                    _round_up(num_constr, 128), hidden,
+                                    chunk_len)
+        if J < 1 or chunk_len % J:
+            raise ValueError(f"seg={seg} does not divide chunk_len="
+                             f"{chunk_len}")
+    n_segs = chunk_len // J
+    spec = dict(J=J, sigma=float(sigma), compute_dtype=compute_dtype)
 
     def fused_chunk_loss(params: Dict, state: IterState, data: QPBatch, t0):
         t0 = int(t0)
@@ -531,15 +796,17 @@ def make_fused_chunk_loss(*, num_var: int, num_constr: int, batch: int,
                 raise ValueError(f"params[{k!r}] has {params[k].shape[0]} "
                                  f"entries, expected K_total={K_total}")
         rhom = rho_vector(1.0, data.eq_mask).to(data.p.dtype)
-        outs = _TrainChunk.apply(
-            spec, t0, *(params[k] for k in _GRAD_KEYS),
-            state.x, state.y, state.z, state.xv, state.H, state.C,
-            data.Q, data.A0, data.p, data.zl, data.zu, rhom)
+        args = (*(params[k] for k in _GRAD_KEYS),
+                state.x, state.y, state.z, state.xv, state.H, state.C,
+                data.Q, data.A0, data.p, data.zl, data.zu, rhom)
+        if stream:
+            outs = _TrainChunk.apply(spec, t0, *args)
+        else:
+            outs = _SegmentChunk.apply(spec, t0, n_segs, *args)
         pr, dr = outs[0], outs[1]
         loss = (pr + dr).mean(0).sum() / outer_T
         return loss, IterState(*outs[2:])
 
-    fused_chunk_loss.segment_len = chunk_len
-    fused_chunk_loss.stream = True
+    fused_chunk_loss.segment_len = J
+    fused_chunk_loss.stream = bool(stream)
     return fused_chunk_loss
-

@@ -240,6 +240,12 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
             K_total=cfg.outer_T,
             compute_dtype="bfloat16" if cfg.matvec_mode == "bf16"
             else "float32")
+        route = dict(stream=fused_loss.stream,
+                     segment_len=fused_loss.segment_len)
+        runlog.log("fused_route", **route)
+        if verbose:
+            print(f"fused training kernels: stream={route['stream']}, "
+                  f"segment_len={route['segment_len']}", flush=True)
 
     loss_override = fused_loss
     if cfg.sparse:

@@ -41,16 +41,56 @@ def test_bsr_bound_counts_the_stored_tiles(nb, w, tm, tn):
 
 
 def test_segment_pair_bounds_at_the_flagship():
-    """The forward's bound is the gate GEMM's: J·2·B·S·h·4h = 2.05 TFLOP
-    plus the KKT matvecs and the float32 epilogue; the backward's has four
-    GEMMs a step."""
-    out = bounds.segment_pair()
-    fwd, by_f = out["fwd_seg (train_rollout.py:147)"]
-    bwd, by_b = out["bwd_seg (train_rollout.py:664)"]
-    gemm_ms = 100 * 2.0 * 4000 * 800 * 3200 / 989e12 * 1e3
-    assert by_f == by_b == "operations"
-    assert gemm_ms < fwd < 1.2 * gemm_ms
-    assert 4 * gemm_ms < bwd < 4.5 * gemm_ms
+    """The segment forward's bound is the stream forward's (one gate GEMM
+    a step: J·2·B·S·h·4h = 2.05 TFLOP) with checkpoints for streams; the
+    segment backward has four GEMMs a step, one more than the stream
+    backward; 2.246 / 8.809 ms at B=2 in bf16, 8x that at B=16."""
+    for dtype, rate in (("bfloat16", 989e12), ("float32", 67e12)):
+        kw = dict(B=2, J=100, n=1000, m=1000, h=800, K=100, dtype=dtype)
+        fwd, by_f = bounds.train_fwd_seg(seg=2, **kw)
+        bwd, by_b = bounds.train_bwd_seg(seg=2, **kw)
+        gemm_ms = 100 * 2.0 * 4000 * 800 * 3200 / rate * 1e3
+        assert by_f == by_b == "operations"
+        assert fwd == pytest.approx(bounds.train_fwd(**kw)[0])
+        assert gemm_ms < fwd < 1.2 * gemm_ms
+        assert 4 * gemm_ms < bwd < 4.5 * gemm_ms
+        assert bwd > bounds.train_bwd(**kw)[0] + gemm_ms
+        if dtype == "bfloat16":
+            assert (fwd, bwd) == (pytest.approx(2.246, abs=1e-3),
+                                  pytest.approx(8.809, abs=1e-3))
+        big = bounds.train_bwd_seg(seg=2, **dict(kw, B=16))[0]
+        assert big == pytest.approx(8 * bwd, rel=1e-3)
+
+
+def test_segment_bounds_count_the_checkpoints():
+    """Bytes: the forward writes one state (H, C float32) a segment plus
+    the final one, the backward reads them back; at a size where the bytes
+    bound, halving the segments halves those bytes."""
+    kw = dict(B=64, J=8, n=8, m=8, h=4, K=8)
+    st = bounds._state_bytes(64, 8, 8, 4)
+    f1 = bounds.train_fwd_seg(seg=1, **kw)
+    f2 = bounds.train_fwd_seg(seg=2, **kw)
+    b1 = bounds.train_bwd_seg(seg=1, **kw)
+    b2 = bounds.train_bwd_seg(seg=2, **kw)
+    assert f1[1] == f2[1] == b1[1] == b2[1] == "bytes"
+    assert (f1[0] - f2[0]) == pytest.approx(4 * st / 3.35e12 * 1e3)
+    assert (b1[0] - b2[0]) == pytest.approx(4 * st / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("solver", ["kkt", "direct", "cg"])
+def test_stage2_bounds_at_the_serving_shape(solver):
+    """B=8, N=20, n=m=1000: 'kkt' reads the (n+m)² inverse (bytes bound,
+    0.0574 ms); 'direct' the n² one and runs two refinement passes; 'cg'
+    101 matvecs of M a step (operations bound).  unported() lists 'direct'
+    and 'cg'."""
+    ms, by = bounds.stage2(8, 20, 1000, 1000, solver)
+    want = {"kkt": (0.0574, "bytes"), "direct": (0.0670, "operations"),
+            "cg": (1.4736, "operations")}[solver]
+    assert (round(ms, 4), by) == want
+    names = " ".join(bounds.unported())
+    assert (repr(solver) in names) == (solver != "kkt")
+    with pytest.raises(ValueError, match="solver"):
+        bounds.stage2(8, 20, 1000, 1000, "lu")
 
 
 @pytest.mark.parametrize("gate,rate", [("bfloat16", 989e12),

@@ -266,3 +266,97 @@ def test_float32_train_kernels_match_plain(no_tf32):
         assert _leaf_gap(s, b) <= 1e-4, f"d{k}"
         gap = _leaf_gap(a, b)
         assert gap <= 1e-4 or gap <= 2 * _leaf_gap(o, b), (f"d{k}", gap)
+
+
+def _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt):
+    """The segment pair over a chunk of J steps, as make_fused_chunk_loss
+    runs it: losses, final state, gradients, start-state cotangents."""
+    kw = dict(sigma=1e-3, compute_dtype=cdt)
+    B = st[0].shape[0]
+    losses = tuple(torch.empty((B, J), device=st[0].device)
+                   for _ in range(2))
+    ckpts, cur = [], st
+    for s in range(J // seg):
+        ckpts.append(cur)
+        *_, cur = ttr.train_fwd_seg_cuda(weights, cur, dd, t0=t0 + s * seg,
+                                         J=seg, losses=losses, col=s * seg,
+                                         **kw)
+    acc, dst = None, dfin
+    for s in reversed(range(J // seg)):
+        acc, dst = ttr.train_bwd_seg_cuda(weights, ckpts[s], dd, dst, dpr,
+                                          ddr, t0=t0 + s * seg, J=seg,
+                                          col=s * seg, acc=acc, **kw)
+    return (*losses, *cur), acc, dst
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("seg", [1, 2, 3])
+def test_segment_kernels_match_the_stream_kernels(no_tf32, seg, cdt):
+    """The segment pair over a J=6 chunk: losses, final state, every
+    gradient leaf and the start state's cotangents bitwise equal to the
+    stream pair's (the same launches, sums in the same order); the forward
+    against the plain segment forward at the stream tests' tolerances; the
+    segment backward twice bitwise equal; one launch a segment each."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    dev, J, t0 = no_tf32, 6, 1
+    weights, st, dd, g = _train_inputs(dev)
+    kw = dict(sigma=1e-3, compute_dtype=cdt)
+    pr, dr, final, streams = ttr.train_fwd_cuda(weights, st, dd, t0=t0, J=J,
+                                                **kw)
+    dpr = torch.rand(pr.shape, generator=g).to(dev)
+    ddr = torch.rand(dr.shape, generator=g).to(dev)
+    dfin = tuple((0.1 * torch.randn(f.shape, generator=g)).to(dev)
+                 for f in final)
+    grads, dst = ttr.train_bwd_cuda(weights, dd, streams, dfin, dpr, ddr,
+                                    t0=t0, J=J, **kw)
+    ctr = "launches" if cdt == "bfloat16" else "launches_f32"
+    f0 = getattr(ttr.train_fwd_seg_cuda, ctr)
+    b0 = getattr(ttr.train_bwd_seg_cuda, ctr)
+    outs, sgrads, sdst = _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg,
+                                   J, t0, cdt)
+    assert getattr(ttr.train_fwd_seg_cuda, ctr) == f0 + J // seg
+    assert getattr(ttr.train_bwd_seg_cuda, ctr) == b0 + J // seg
+    names = ("pr", "dr", "x", "y", "z", "xv", "H", "C")
+    for k, a, b in zip(names, outs, (pr, dr, *final)):
+        assert torch.equal(a, b), k
+    for k, a, b in zip("W U b W_h b_h rho alpha".split(), sgrads, grads):
+        assert torch.equal(a, b), k
+    for k, a, b in zip("x y z xv H C".split(), sdst, dst):
+        assert torch.equal(a, b), f"d{k}"
+    again = _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt)
+    assert all(torch.equal(a, b) for a, b in zip(again[1], sgrads))
+    ppr, pdr, pfin = ttr.train_fwd_seg_plain(weights, st, dd, t0=t0, J=J,
+                                             **kw)
+    for a, b in zip(outs, (ppr, pdr, *pfin)):
+        if cdt == "bfloat16":
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
+        else:
+            assert _leaf_gap(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+def test_segment_route_through_the_chunk_loss(no_tf32, cdt):
+    """make_fused_chunk_loss on CUDA tensors: seg=2 and the stream route
+    give bitwise-equal losses, final states and parameter gradients."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    from iadmm_tpu_torch.types import IterState
+    dev = no_tf32
+    weights, st, _, _ = _train_inputs(dev)
+    data = _qp(dev)   # the batch _train_inputs made
+    res = {}
+    for name, route in (("segment", dict(seg=2)), ("stream", {})):
+        params = {k: w.clone().requires_grad_(True) for k, w in
+                  zip("W U b W_h b_h rho alpha".split(), weights)}
+        fn = ttr.make_fused_chunk_loss(num_var=20, num_constr=22, batch=2,
+                                       hidden=24, sigma=1e-3, chunk_len=6,
+                                       outer_T=8, K_total=8,
+                                       compute_dtype=cdt, **route)
+        assert fn.stream == (name == "stream")
+        loss, out = fn(params, IterState(*st), data, 2)
+        loss.backward()
+        res[name] = (loss, out, {k: p.grad for k, p in params.items()})
+    (sl, so, sg), (rl, ro, rg) = res["segment"], res["stream"]
+    assert torch.isfinite(sl) and torch.equal(sl, rl)
+    for f in ("x", "y", "z", "xv", "H", "C"):
+        assert torch.equal(getattr(so, f), getattr(ro, f)), f
+    assert all(torch.equal(sg[k], rg[k]) for k in rg)

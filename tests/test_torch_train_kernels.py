@@ -60,12 +60,14 @@ def make_inputs(seed=0, B=B, n=N, m=M, h=H, K=K_TOTAL):
     return data, params, state
 
 
-def jax_side(data, params, state, t0, dtype, chunk=J):
+def jax_side(data, params, state, t0, dtype, chunk=J, **route):
+    """The JAX package's fused chunk loss in interpret mode: the stream
+    pair, or the route ``route`` names (``stream``, ``seg``)."""
     import jax
     fused = j_make_fused(num_var=N, num_constr=M, batch=B, hidden=H,
                          sigma=SIGMA, chunk_len=chunk, outer_T=OUTER_T,
-                         K_total=K_TOTAL, interpret=True, stream=True,
-                         compute_dtype=dtype)
+                         K_total=K_TOTAL, interpret=True,
+                         compute_dtype=dtype, **(route or dict(stream=True)))
     jd = jtypes.QPBatch(**{k: jnp.asarray(v) for k, v in data.items()})
     js = jtypes.IterState(**{k: jnp.asarray(v) for k, v in state.items()})
     jp = {k: jnp.asarray(v) for k, v in params.items()}
@@ -75,7 +77,8 @@ def jax_side(data, params, state, t0, dtype, chunk=J):
     return float(loss), st, g
 
 
-def torch_side(data, params, state, t0, dtype, chunk=J, wd=torch.float32):
+def torch_side(data, params, state, t0, dtype, chunk=J, wd=torch.float32,
+               **route):
     td = ttypes.QPBatch(**{k: torch.as_tensor(v) if k == "eq_mask"
                            else torch.as_tensor(v, dtype=wd)
                            for k, v in data.items()})
@@ -86,7 +89,7 @@ def torch_side(data, params, state, t0, dtype, chunk=J, wd=torch.float32):
     fused = ttr.make_fused_chunk_loss(
         num_var=N, num_constr=M, batch=B, hidden=H, sigma=SIGMA,
         chunk_len=chunk, outer_T=OUTER_T, K_total=K_TOTAL,
-        compute_dtype=dtype)
+        compute_dtype=dtype, **route)
     loss, st = fused(tp, ts, td, t0)
     loss.backward()
     return loss, st, {k: v.grad for k, v in tp.items()}
@@ -170,22 +173,27 @@ def test_rho_alpha_grads_land_at_t0():
 
 
 def test_unported_routes_raise(monkeypatch):
+    """Only data parallelism (``mesh``) is left unported: an explicit
+    ``seg``, ``stream=False`` and streams over the budget take the segment
+    route."""
     kw = dict(num_var=N, num_constr=M, batch=B, hidden=H, sigma=SIGMA,
               chunk_len=J, outer_T=OUTER_T, K_total=K_TOTAL)
     auto = ttr.make_fused_chunk_loss(**kw)
     assert auto.stream and auto.segment_len == J
-    for bad in (dict(seg=2), dict(stream=False), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.make_fused_chunk_loss(**kw, **bad)
-    monkeypatch.setenv("IADMM_STREAM_HBM", "1")   # nothing fits
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.make_fused_chunk_loss(**kw)
+        ttr.make_fused_chunk_loss(**kw, mesh=object())
+    for opt, seg_len in ((dict(seg=2), 2), (dict(stream=False), J)):
+        fn = ttr.make_fused_chunk_loss(**kw, **opt)
+        assert (fn.stream, fn.segment_len) == (False, seg_len)
+    monkeypatch.setenv("IADMM_STREAM_HBM", "1")   # nothing fits
+    fn = ttr.make_fused_chunk_loss(**kw)
+    assert (fn.stream, fn.segment_len) == (False, J)
 
 
 def test_cuda_wrappers_check_before_launch():
-    """The CUDA wrappers refuse an unknown compute dtype, bad shapes and
-    streams of the wrong dtype before any CUDA call, for both compute
-    dtypes, so this holds on the CPU."""
+    """The CUDA wrappers refuse an unknown compute dtype, bad shapes,
+    streams of the wrong dtype and loss columns outside the chunk before
+    any CUDA call, for both compute dtypes, so this holds on the CPU."""
     data, params, state = make_inputs()
     weights, st, dd = _tensors(data, params, state, torch.float32)
     kw = dict(t0=0, J=J, sigma=SIGMA)
@@ -207,3 +215,18 @@ def test_cuda_wrappers_check_before_launch():
         bad = (streams[0].to(other),) + streams[1:]
         with pytest.raises(ValueError, match="hs"):
             ttr.train_bwd_cuda(weights, dd, bad, final, pr, dr, **kwd)
+        # the segment pair: loss columns outside the chunk's, accumulators
+        # and cotangents of the wrong shape
+        with pytest.raises(ValueError, match="columns"):
+            ttr.train_fwd_seg_cuda(weights, st, dd, losses=(pr, dr), col=1,
+                                   **kwd)
+        with pytest.raises(ValueError, match="columns"):
+            ttr.train_bwd_seg_cuda(weights, st, dd, final, pr, dr, col=2,
+                                   **kwd)
+        acc = ttr._zero_grads(H, J + 1, torch.float32, "cpu")
+        with pytest.raises(ValueError, match="drho"):
+            ttr.train_bwd_seg_cuda(weights, st, dd, final, pr, dr, acc=acc,
+                                   **kwd)
+        with pytest.raises(ValueError, match="dH"):
+            ttr.train_bwd_seg_cuda(weights, st, dd, final[:4] + (
+                final[4][:, :-1], final[5]), pr, dr, **kwd)
