@@ -7,8 +7,9 @@ Builds the CUDA kernels from ``iadmm_tpu_torch/kernels/csrc`` (first use),
 then runs eight phases at the flagship shape QP_1000_500_500 / h=800, two
 at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50), four at the
 flagship's float32 precision profile (``configs/qp_1000_500_500.yaml``:
-float32 gates, float32 matvecs) and two on the segment-recompute training
-route, which the shipped config takes from ``--batch_size 9``:
+float32 gates, float32 matvecs), two on the segment-recompute training
+route, which the shipped config takes from ``--batch_size 9``, and one on
+Stage II's condensed-system solvers:
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16)
       and on a ragged small case;
@@ -90,14 +91,39 @@ route, which the shipped config takes from ``--batch_size 9``:
       report the segment route (stream=False, segment_len=2), launch only the
       segment kernels of the training pair, finish with finite losses and
       moved parameters; then one chunk update at B=16 on each route from the
-      same params, bitwise equal, with each route's time and peak memory.
+      same params, bitwise equal, with each route's time and peak memory;
+  (q) Stage II's 'direct' (explicit M⁻¹, refine 2) and 'cg' (Jacobi CG,
+      100 iterations a step) kernels against their plain twins at the
+      serving shape (B=8, N=20) from (b)'s rollout iterates: short runs
+      ('direct': one polish step at refine 0 and at refine 2; 'cg': one
+      step and three steps of 3 iterations, and one step of 10 at a
+      tolerance, taken from the plain twin's residuals, that stops some
+      instances inside it and not others) to 1e-4
+      of max(1, max|ref|) per output, the 'cg' unmasked-iteration counts
+      equal, and each one-step run's outputs to 1e-4 of the float32
+      update of the kernel's own xt; the 'direct' y and dual residual,
+      which carry ν = ρ(A0·xt − z) + y (ρ_eq = 1e3·ρ meets the rounding of
+      xt and of A0·xt), are held instead to the float64 update of the
+      kernel's xt within 4x the float32 update's own gap, and to 4x the
+      twin's own gap under reorderings; at N=20 each output and trace within
+      MAX_GAP_OVER_ROUNDING x the twin's own gap under three reorderings of
+      the variables and the constraint rows (cond(M) ~ 2e5 amplifies
+      float32 rounding), at least 4 float32 ulps; two calls bitwise equal;
+      timed beside the operand (M⁻¹ / the diagonal), the twin, the bound
+      and a cuBLAS yardstick ('cg': solvers/cg.py's plain-torch polish);
+      then the public ``fused_stage2(solver='cg')`` on the same iterates,
+      and ``make_solver`` with 'fused-direct' (held to the LU route at
+      1e-4 + 1e-3·|LU| or, where further, to the float64 LU polish as (n))
+      and with 'cg' (no Stage-II kernel; every instance below its first
+      polish step's primal residual) answering 3 requests of B=8 each.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before each main
 path and read just after it: (d) and (e) (serving), (g) (training), (j)'s
 training and its ``run_test`` on the two routes (the sparse path), (m)'s
 three CLI runs (the shipped config), (n) (float32 serving) and each of
-(p)'s two CLI runs (the segment route).  The
+(p)'s two CLI runs (the segment route), (q)'s ``fused_stage2(solver='cg')``
+and its two ``make_solver`` runs (the condensed Stage II).  The
 second-to-last line is the per-kernel JSON, the last line ``{"ok": true,
 "device": {...}}``.  Weights are random from a seed (no trained checkpoint
 is in the repository).  Exits non-zero without a CUDA device.  Longer
@@ -512,6 +538,8 @@ def _counted():
     return dict(cell=(cell, "launches"), cell_f32=(cell, "launches_f32"),
                 rollout=(rollout_kernel.fused_rollout, "launches"),
                 stage2=(stage2_kernel.fused_stage2, "launches"),
+                stage2_direct=(stage2_kernel.fused_stage2, "launches_direct"),
+                stage2_cg=(stage2_kernel.fused_stage2, "launches_cg"),
                 train_fwd=(tr.train_fwd_cuda, "launches"),
                 train_fwd_f32=(tr.train_fwd_cuda, "launches_f32"),
                 train_bwd=(tr.train_bwd_cuda, "launches"),
@@ -534,6 +562,16 @@ def launch_counts():
     return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
 
 
+def data_as(data, dtype):
+    """``data`` with its floating-point tensors in ``dtype``."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(data, **{
+        f.name: v.to(dtype) for f in dataclasses.fields(data)
+        if isinstance(v := getattr(data, f.name), torch.Tensor)
+        and v.is_floating_point()})
+
+
 def lu64_polish(params, data, start):
     """Primal residuals after the LU Stage II in float64 from the float32
     pipeline's pre-polish iterates ``start`` (a SolveResult)."""
@@ -544,10 +582,7 @@ def lu64_polish(params, data, start):
     from iadmm_tpu_torch.solvers.step import _schedules
     from iadmm_tpu_torch.types import IterState
     f64 = torch.float64
-    d64 = dataclasses.replace(data, **{
-        f.name: v.to(f64) for f in dataclasses.fields(data)
-        if isinstance(v := getattr(data, f.name), torch.Tensor)
-        and v.is_floating_point()})
+    d64 = data_as(data, f64)
     rho, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
     x, y, z = (getattr(start, k).to(f64) for k in "xyz")
     st = IterState(x=x, y=y, z=z, xv=torch.cat([x, y], -1),
@@ -560,16 +595,16 @@ def lu64_polish(params, data, start):
 
 
 def phase_serve(tag, params, requests, report, need, lu64=False,
-                **profile):
+                rtol=1e-2, forbid=(), **profile):
     """Answer the requests with ``make_solver(params, **profile)`` (the
     flagship's K, h and polish steps); check each residual against the
     'lu' Stage-II route and the polish against no polish.  ``need``: the
-    kernels the route must launch.  ``lu64``: where the fused Stage II is
-    more than 1e-4 + 1e-2·|LU| from the float32 LU route, hold it instead
-    to the float64 LU polish from the same iterates, within
-    MAX_GAP_OVER_ROUNDING x the float32 LU route's own gap to it (both
-    float32 routes' errors grow with the pre-polish iterates and the
-    conditioning of the KKT matrix)."""
+    kernels the route must launch; ``forbid``: those it must not.  ``lu64``:
+    where the fused Stage II is more than 1e-4 + rtol·|LU| from the float32
+    LU route, hold it instead to the float64 LU polish from the same
+    iterates, within MAX_GAP_OVER_ROUNDING x the float32 LU route's own gap
+    to it, + 1e-2·|LU64| (both float32 routes' errors grow with the
+    pre-polish iterates and the conditioning of the KKT matrix)."""
     import torch
     from iadmm_tpu_torch.api import make_solver
     kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
@@ -596,7 +631,7 @@ def phase_serve(tag, params, requests, report, need, lu64=False,
     pr_before = start.primal_res
     pr_fused = prs[0]
     pr_lu = lu.primal_res
-    gap = float(((pr_fused - pr_lu).abs() - 1e-2 * pr_lu.abs()).max())
+    gap = float(((pr_fused - pr_lu).abs() - rtol * pr_lu.abs()).max())
     ratio = float((pr_fused / pr_before).max())
     gap64 = None
     if lu64:
@@ -613,7 +648,7 @@ def phase_serve(tag, params, requests, report, need, lu64=False,
                primal_res_req0_lu=[float(v) for v in pr_lu],
                primal_res_req0_before_stage2=[float(v) for v in pr_before],
                max_ratio_after_over_before=ratio,
-               gap_to_lu_minus_1e2_rel=gap)
+               **{f"gap_to_lu_minus_{rtol:g}_rel": gap})
     if lu64:
         row.update(primal_res_req0_lu_float64=[float(v) for v in pr64],
                    gap_to_lu64_minus_own_and_1e2_rel=gap64)
@@ -621,9 +656,12 @@ def phase_serve(tag, params, requests, report, need, lu64=False,
     for k in need:
         if delta[k] <= 0:
             raise PhaseError(f"{tag}: the {k} kernel was not launched")
+    for k in forbid:
+        if delta[k]:
+            raise PhaseError(f"{tag}: the {k} kernel was launched")
     if gap > 1e-4 and not (lu64 and gap64 <= 1e-4):
         raise PhaseError(f"{tag}: primal residual differs from the LU "
-                         f"route by more than 1e-4 + 1e-2·|LU|")
+                         f"route by more than 1e-4 + {rtol:g}·|LU|")
     # Threshold: the polish steps must bring every instance's primal
     # residual below MAX_POLISH_RATIO of the learned rollout's own (weights
     # are untrained, so no absolute level is meaningful).
@@ -635,13 +673,16 @@ def phase_serve(tag, params, requests, report, need, lu64=False,
     return delta
 
 
-def serve_breakdown(params, data):
-    """Host-clock time of each stage of the fused serving route."""
+def serve_breakdown(params, data, solver="kkt"):
+    """Host-clock time of each stage of the fused serving route with the
+    Stage-II ``solver``: 'kkt' or 'direct' (operand, then kernel) or 'cg'
+    (``make_solver('cg')``'s plain-torch polish)."""
     import torch
     from iadmm_tpu_torch.evaluation import metrics
     from iadmm_tpu_torch.kernels import rollout_kernel as rk, \
         stage2_kernel as s2
     from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.cg import feasibility_restoration_cg
     from iadmm_tpu_torch.solvers.step import _schedules
     from iadmm_tpu_torch.types import IterState
     t = {}
@@ -664,16 +705,26 @@ def serve_breakdown(params, data):
                    C=x.new_zeros((B, 1, 1)))
     rho_vec, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
     rho = rho_vec.float() * torch.ones_like(data.zl)
-    Ainv = s2.kkt_inverse(data, rho, SIGMA)
-    t0 = mark("kkt_inverse_ms", t0)
-    out = s2.stage2_cuda(st, data, rho, Ainv, num_iters=POLISH_STEPS,
-                          sigma=SIGMA, refine=0)
-    t0 = mark("stage2_kernel_ms", t0)
-    s2.finish_state(st, data, rho, *out[:4])
+    if solver == "cg":
+        st = feasibility_restoration_cg(st, data, SIGMA, rho_vec,
+                                        POLISH_STEPS)
+        t0 = mark("stage2_cg_plain_torch_ms", t0)
+        out = (st.x, st.y, st.z)
+    else:
+        form, run, refine = ((s2.kkt_inverse, s2.stage2_cuda, 0)
+                             if solver == "kkt" else
+                             (s2.direct_inverse, s2.stage2_direct_cuda, 2))
+        op = form(data, rho, SIGMA)
+        t0 = mark(f"{solver}_inverse_ms", t0)
+        out = run(st, data, rho, op, num_iters=POLISH_STEPS, sigma=SIGMA,
+                  refine=refine)
+        t0 = mark("stage2_kernel_ms", t0)
+        s2.finish_state(st, data, rho, *out[:4])
     metrics.primal_dual_residual(out[0], out[1], out[2], data.Q, data.p,
                                  data.A0, "default")
     mark("finish_and_metrics_ms", t0)
-    say("d breakdown", batch=B, **t)
+    say(f"{'d' if solver == 'kkt' else 'q'} breakdown {solver}", batch=B,
+        **t)
     return t
 
 
@@ -2001,6 +2052,397 @@ def phase_seg_train(params, data16, report):
     return launches
 
 
+# (q): Stage II's condensed-system solvers 'direct' and 'cg'
+CG_ITERS, DIRECT_REFINE = 100, 2   # fused_stage2's defaults
+Q_TIGHT = 1e-4   # kernel vs plain at the short runs, of max(1, max|ref|)
+Q_OUTPUTS = ("x", "y", "z", "xt", "pr", "dr")
+# The 'direct' outputs that carry ν = ρ(A0·xt − z) + y: ρ_eq = 1e3·ρ
+# multiplies the rounding of xt (its M⁻¹ product, cond(M) ~ 2e5) into y,
+# and dr = ‖Qx + p + A0ᵀy‖ carries it.  At the one-step runs the update is
+# held on the kernel's own xt: these two to the float64 update within 4x the
+# float32 update's own gap (the rounding of A0·xt itself meets ρ_eq there),
+# the rest to the float32 update at Q_TIGHT; they are also held to 4x the
+# plain twin's own gap under reorderings.
+Q_NU_OUTPUTS = ("y", "dr")
+# CG iterations of the 'cg' masking run (one polish step at a tolerance
+# that stops some instances inside it and not others)
+Q_MASK_ITERS = 10
+
+
+def permuted_polish(plain, data, st, rho, op, seed, **kw):
+    """``plain`` on the same polish with the variables and the constraint
+    rows reordered (equal in exact arithmetic: only float32 sums run in
+    another order), its outputs put back in the original order."""
+    import dataclasses
+    import torch
+    from iadmm_tpu_torch.types import IterState
+    B, n = data.p.shape
+    m = data.num_constr
+    pv = torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    pc = torch.randperm(m, generator=torch.Generator().manual_seed(seed + 1))
+    pv, pc = pv.to(data.p.device), pc.to(data.p.device)
+    d = dataclasses.replace(data, Q=data.Q[:, pv][:, :, pv],
+                            A0=data.A0[:, pc][:, :, pv], p=data.p[:, pv],
+                            zl=data.zl[:, pc], zu=data.zu[:, pc],
+                            eq_mask=data.eq_mask[:, pc])
+    s = IterState(x=st.x[:, pv], y=st.y[:, pc], z=st.z[:, pc],
+                  xv=torch.cat([st.xv[:, pv], st.xv[:, n:][:, pc]], -1),
+                  H=st.H, C=st.C)
+    op = op[:, pv][:, :, pv] if op.dim() == 3 else op[:, pv]
+    out = plain(s, d, rho[:, pc], op, **kw)
+    iv, ic = torch.argsort(pv), torch.argsort(pc)
+    return (out[0][:, iv], out[1][:, ic], out[2][:, ic], out[3][:, iv],
+            *out[4:])
+
+
+def direct_yardstick(data, rho, P, b, refine):
+    """One 'direct' polish solve on cuBLAS: torch.bmm of the operand by b,
+    then ``refine`` passes of r = b − M·xt (three bmm), xt += P·r."""
+    import torch
+    Q, A0 = data.Q, data.A0
+    xt = torch.bmm(P, b[..., None])
+    for _ in range(refine):
+        mv = (torch.bmm(Q, xt) + SIGMA * xt
+              + torch.bmm(A0.mT, rho[..., None] * torch.bmm(A0, xt)))
+        xt = xt + torch.bmm(P, b[..., None] - mv)
+    return xt
+
+
+def update_of(xt, data, st, rho, dtype):
+    """One polish step's update of a given ``xt`` from ``st`` (ν = ρ(A0·xt −
+    z) + y, the z-relaxed ADMM update, the residuals) in ``dtype``:
+    ``solvers.cg.exact_step_cg`` with no CG iteration, warm-started from
+    ``xt``.  Returns (x, y, z, xt, pr, dr), the traces (B, 1)."""
+    import torch
+    from iadmm_tpu_torch.evaluation import metrics
+    from iadmm_tpu_torch.solvers.cg import exact_step_cg
+    from iadmm_tpu_torch.types import IterState
+    d = data_as(data, dtype)
+    s = IterState(x=st.x.to(dtype), y=st.y.to(dtype), z=st.z.to(dtype),
+                  xv=torch.cat([xt, st.xv[:, xt.shape[1]:]], -1).to(dtype),
+                  H=st.H, C=st.C)
+    out = exact_step_cg(rho.to(dtype), s, d, SIGMA, maxiter=0)
+    pr, dr = metrics.primal_dual_residual(out.x, out.y, out.z, d.Q, d.p,
+                                          d.A0)
+    return out.x, out.y, out.z, xt.to(dtype), pr[:, None], dr[:, None]
+
+
+def masking_tol(data, st, rho, diag):
+    """A tolerance for the 'cg' masking run: the plain ‖r‖/‖b‖ of each
+    instance after Q_MASK_ITERS // 2 unmasked CG iterations of the first
+    polish step, sorted; the geometric mean of the two neighbours furthest
+    apart, so that the instances below it stop inside the run, the others
+    do not, and none sits near the bar.  Returns (tol, the ratios)."""
+    import torch
+    from iadmm_tpu_torch.solvers.cg import (batched_cg, condensed_matvec,
+                                            condensed_rhs)
+    b = condensed_rhs(data, st.x, st.y, st.z, SIGMA, rho)
+    _, r, _ = batched_cg(lambda v: condensed_matvec(data, v, SIGMA, rho), b,
+                         st.xv[:, :data.num_var], diag, Q_MASK_ITERS // 2,
+                         0.0)
+    ratios = sorted((r / torch.linalg.vector_norm(b, dim=-1)).tolist())
+    lo, hi = max(zip(ratios, ratios[1:]), key=lambda p: p[1] / p[0])
+    return (lo * hi) ** 0.5, ratios
+
+
+def q_gaps(out, ref, floor):
+    """{output: max |out − ref| over max(floor, max|ref|)}"""
+    return {k: float((out[i] - ref[i]).abs().max())
+            / max(float(ref[i].abs().max()), floor)
+            for i, k in enumerate(Q_OUTPUTS)}
+
+
+def phase_condensed(params, data, sc, xyz, requests, report):
+    """(q): Stage II's 'direct' and 'cg' kernels against their plain twins
+    at the serving shape (B=8, N=20) from the rollout iterates of (b), the
+    public ``fused_stage2(solver='cg')`` on the same iterates, then
+    ``make_solver`` with 'fused-direct' and 'cg' serving 3 requests each.
+    Returns the main path's launches of each mode."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds, stage2_kernel as s2
+    from iadmm_tpu_torch.solvers.cg import feasibility_restoration_cg
+    from iadmm_tpu_torch.solvers.step import _schedules
+    from iadmm_tpu_torch.types import IterState
+    x, y, z = xyz
+    B, n = data.p.shape
+    m, N = data.num_constr, POLISH_STEPS
+    st = IterState(x=sc.unscale_x(x), y=sc.unscale_y(y),
+                   z=sc.unscale_z(z), xv=torch.cat([x, y], -1),
+                   H=x.new_zeros((B, 1, 1)), C=x.new_zeros((B, 1, 1)))
+    rho_vec, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
+    rho = rho_vec.float() * torch.ones_like(data.zl)
+    diag = s2.cg_diag(data, rho, SIGMA)
+    mask_tol, mask_ratios = masking_tol(data, st, rho, diag)
+    modes = dict(
+        direct=dict(form=s2.direct_inverse, kernel=s2.stage2_direct_cuda,
+                    plain=s2.stage2_direct_plain, counter="launches_direct",
+                    tight=dict(step_refine0=dict(num_iters=1, refine=0),
+                               step_refine2=dict(num_iters=1,
+                                                 refine=DIRECT_REFINE)),
+                    nu_outputs=Q_NU_OUTPUTS,
+                    full=dict(num_iters=N, refine=DIRECT_REFINE)),
+        cg=dict(form=s2.cg_diag, kernel=s2.stage2_cg_cuda,
+                plain=s2.stage2_cg_plain, counter="launches_cg",
+                tight=dict(step_3_iters=dict(num_iters=1, cg_iters=3,
+                                             tol=1e-8),
+                           steps_3_3_iters=dict(num_iters=3, cg_iters=3,
+                                                tol=1e-8),
+                           step_masked=dict(num_iters=1,
+                                            cg_iters=Q_MASK_ITERS,
+                                            tol=mask_tol)),
+                nu_outputs=(),
+                full=dict(num_iters=N, cg_iters=CG_ITERS, tol=1e-8)))
+    failures = []
+    for solver, md in modes.items():
+        op = md["form"](data, rho, SIGMA)
+        op_ms = cuda_ms(lambda: md["form"](data, rho, SIGMA), reps=5)
+
+        def run(which, kw, md=md, op=op):
+            return md[which](st, data, rho, op, sigma=SIGMA, **kw)
+
+        def own_gaps(ref, kw, floor, md=md, op=op):
+            """{output: the plain twin's largest gap to ``ref`` under the
+            reorderings, over max(floor, max|ref|)}"""
+            perms = [permuted_polish(md["plain"], data, st, rho, op, seed,
+                                     sigma=SIGMA, **kw)
+                     for seed in PERMUTATIONS]
+            own = [q_gaps(p, ref, floor) for p in perms]
+            return {k: max(o[k] for o in own) for k in Q_OUTPUTS}
+
+        # Short runs: tight
+        tight, short_abs = {}, 0.0
+        for name, kw in md["tight"].items():
+            out, ref = run("kernel", kw), run("plain", kw)
+            short_abs = max([short_abs] + [float((a - b).abs().max())
+                                           for a, b in zip(out[:6], ref[:6])])
+            t = dict(run=kw, gap=q_gaps(out, ref, 1.0))
+            held = {k: t["gap"][k] for k in Q_OUTPUTS
+                    if k not in md["nu_outputs"]}
+            if kw["num_iters"] == 1:   # the update's arithmetic, on its xt
+                u32, u64 = (update_of(out[3], data, st, rho, dt)
+                            for dt in (torch.float32, torch.float64))
+                t["gap_to_update_of_own_xt"] = q_gaps(out, u32, 1.0)
+                held.update({f"{k} (update of own xt)": v for k, v in
+                             t["gap_to_update_of_own_xt"].items()
+                             if k not in md["nu_outputs"]})
+                g64, own64 = q_gaps(out, u64, 1.0), q_gaps(u32, u64, 1.0)
+                t["float64_update_gap_and_float32_own"] = {
+                    k: (g64[k], own64[k]) for k in md["nu_outputs"]}
+                for k in md["nu_outputs"]:
+                    if g64[k] > max(Q_TIGHT, MAX_GAP_OVER_ROUNDING * own64[k]):
+                        failures.append(
+                            f"{solver} {name} {k}: {g64[k]:.3e} from the "
+                            f"float64 update of its own xt exceeds "
+                            f"{MAX_GAP_OVER_ROUNDING:g}x the float32 "
+                            f"update's own {own64[k]:.3e}")
+            if md["nu_outputs"]:
+                own = own_gaps(ref, kw, 1.0)
+                t["plain_own_gap"] = {k: own[k] for k in md["nu_outputs"]}
+                for k in md["nu_outputs"]:
+                    if t["gap"][k] > max(Q_TIGHT,
+                                         MAX_GAP_OVER_ROUNDING * own[k]):
+                        failures.append(
+                            f"{solver} {name} {k}: {t['gap'][k]:.3e} exceeds "
+                            f"{MAX_GAP_OVER_ROUNDING:g}x the plain twin's "
+                            f"own {own[k]:.3e}")
+            for k, g in held.items():
+                if g > Q_TIGHT:
+                    failures.append(f"{solver} {name} {k}: {g:.3e} exceeds "
+                                    f"{Q_TIGHT:g}")
+            if solver == "cg":
+                t.update(unmasked_cg_iters=out[6].tolist(),
+                         plain_unmasked_cg_iters=ref[6].tolist())
+                if not torch.equal(out[6], ref[6]):
+                    failures.append(f"cg {name}: unmasked CG iterations "
+                                    f"differ from the plain twin's")
+            tight[name] = t
+        if solver == "cg":
+            tight["step_masked"]["ratios_after_half"] = mask_ratios
+            its = tight["step_masked"]["unmasked_cg_iters"]
+            if len(set(its)) < 2 or min(its) >= Q_MASK_ITERS:
+                failures.append(f"cg step_masked: the kernel stopped the "
+                                f"instances after {its} iterations")
+
+        # The full run: relative to the plain twin's own rounding
+        before = getattr(s2.fused_stage2, md["counter"])
+        out = run("kernel", md["full"])
+        torch.cuda.synchronize()
+        launched = getattr(s2.fused_stage2, md["counter"]) - before
+        ref = run("plain", md["full"])
+        full_gap = q_gaps(out, ref, 1e-30)
+        full_own = own_gaps(ref, md["full"], 1e-30)
+        again = run("kernel", md["full"])
+        bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+        k_ms = cuda_ms(lambda: run("kernel", md["full"]), reps=2)
+        p_ms = cuda_ms(lambda: run("plain", md["full"]), reps=1)
+        row = dict(shape=dict(B=B, n=n, m=m, N=N), full_run=md["full"],
+                   max_abs_err=short_abs, tight_runs=tight,
+                   max_abs_err_full=max(float((a - b).abs().max())
+                                        for a, b in zip(out[:6], ref[:6])),
+                   full_rel_gap=full_gap, full_plain_own_gap=full_own,
+                   tol=(f"short runs: {Q_TIGHT:g}·max(1, max|ref|) per "
+                        f"output ('direct' y, dr: on the plain update of the "
+                        f"kernel's own xt, and within "
+                        f"{MAX_GAP_OVER_ROUNDING:g}x the plain twin's own "
+                        f"gap); 'cg': equal unmasked CG iterations; full "
+                        f"run: each output within {MAX_GAP_OVER_ROUNDING:g}x "
+                        f"the plain twin's own gap under "
+                        f"{len(PERMUTATIONS)} reorderings of variables and "
+                        f"rows, at least {ROUTE_FLOOR_K:.3e}"),
+                   bitwise_repeat=bitwise, launches=launched,
+                   kernel_ms=k_ms, plain_ms=p_ms, operand_ms=op_ms,
+                   first_primal_res=[float(v) for v in out[4][:, 0]],
+                   final_primal_res=[float(v) for v in out[4][:, -1]])
+        if solver == "direct":
+            b = torch.randn((B, n), generator=torch.Generator().manual_seed(
+                9)).cuda()
+            row["library_ms"] = N * cuda_ms(lambda: direct_yardstick(
+                data, rho, op, b, DIRECT_REFINE), reps=3)
+            row["library_note"] = (
+                f"yardstick: {N} x (torch.bmm of the operand by b, then "
+                f"{DIRECT_REFINE} refine passes of three bmm for M·xt and one "
+                f"for P·r)")
+            # where the one-time operand's time goes (library calls)
+            eye = torch.eye(n, device=data.p.device)
+            M = data.Q + SIGMA * eye + data.A0.mT @ (rho[..., None] * data.A0)
+            L = torch.linalg.cholesky(M)
+            row["operand_parts_ms"] = dict(
+                product=cuda_ms(lambda: data.Q + SIGMA * eye + data.A0.mT
+                                @ (rho[..., None] * data.A0), reps=3),
+                cholesky=cuda_ms(lambda: torch.linalg.cholesky(M), reps=3),
+                cholesky_solve=cuda_ms(lambda: torch.cholesky_solve(
+                    eye.expand_as(M), L), reps=3),
+                linalg_library=str(
+                    torch.backends.cuda.preferred_linalg_library()))
+            b_ms, b_by = bounds.stage2(B, N, n, m, solver,
+                                       refine=DIRECT_REFINE)
+        else:
+            row["library_ms"] = cuda_ms(lambda: feasibility_restoration_cg(
+                st, data, SIGMA, rho_vec, N, CG_ITERS), reps=1)
+            row["library_note"] = (
+                "solvers/cg.py::feasibility_restoration_cg, plain torch on "
+                "cuBLAS matvecs: the same polish, make_solver('cg')'s route")
+            iters = out[6]
+            iters_per_step = float(iters.float().mean()) / N
+            row.update(unmasked_cg_iters=[int(v) for v in iters],
+                       plain_unmasked_cg_iters=[int(v) for v in ref[6]],
+                       cg_iters_per_step_in_bound=iters_per_step)
+            b_ms, b_by = bounds.stage2(B, N, n, m, solver,
+                                       cg_iters=iters_per_step)
+        row.update(bound_ms=b_ms, bound_by=b_by)
+        say(f"q stage2 {solver}", **row)
+        report[f"stage2_{solver}"] = row
+        for k in Q_OUTPUTS:
+            if not full_gap[k] <= max(MAX_GAP_OVER_ROUNDING * full_own[k],
+                                      ROUTE_FLOOR_K):
+                failures.append(f"{solver} {k}: gap {full_gap[k]:.3e} at "
+                                f"N={N} exceeds {MAX_GAP_OVER_ROUNDING:g}x "
+                                f"the plain twin's own {full_own[k]:.3e}")
+        if launched != N:
+            failures.append(f"{solver}: {launched} launches for {N} steps")
+        if not bitwise:
+            failures.append(f"{solver}: two calls gave different outputs")
+    if failures:
+        raise PhaseError("q: " + "; ".join(failures))
+
+    # The public kernel entry of 'cg' on the same iterates (the only route
+    # to the kernel's 'cg' mode, in the JAX package as well): main path.
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_cg, pr, dr = s2.fused_stage2(st, data, rho_vec, num_iters=N,
+                                    solver="cg")
+    torch.cuda.synchronize()
+    entry_ms = (time.perf_counter() - t0) * 1e3
+    cg_path = launch_counts()
+    lu = make_lu_polish(data, st, rho_vec)
+    row = dict(ms=entry_ms, launches={k: v for k, v in cg_path.items() if v},
+               first_primal_res=[float(v) for v in pr[:, 0]],
+               final_primal_res=[float(v) for v in pr[:, -1]],
+               final_primal_res_lu=[float(v) for v in lu])
+    say("q fused_stage2 cg", **row)
+    report["fused_stage2_cg"] = row
+    if not all(bool(t.isfinite().all()) for t in (st_cg.x, st_cg.y, st_cg.z,
+                                                  st_cg.xv, pr, dr)):
+        raise PhaseError("q: fused_stage2(solver='cg') is not finite")
+    if not bool((pr[:, -1] < pr[:, 0]).all()):
+        raise PhaseError("q: fused_stage2(solver='cg') left a primal "
+                         "residual above its first step's")
+
+    fast = dict(sigma=SIGMA, use_pallas=True, gate_dtype="bfloat16",
+                matvec_mode="bf16", rollout_impl="fused")
+    direct_path = phase_serve("q serve fused-direct", params, requests,
+                              report, ("stage2_direct", "rollout"),
+                              lu64=True, rtol=1e-3,
+                              forbid=("stage2", "stage2_cg"),
+                              stage2_impl="fused-direct", **fast)
+    report["breakdown_direct"] = serve_breakdown(params, requests[1],
+                                                 "direct")
+    serve_cg(params, requests, report, **fast)
+    report["breakdown_cg"] = serve_breakdown(params, requests[1], "cg")
+    return dict(direct=direct_path["stage2_direct"],
+                cg=cg_path["stage2_cg"])
+
+
+def serve_cg(params, requests, report, **profile):
+    """``make_solver(params, stage2_impl='cg', **profile)`` (plain-torch
+    Jacobi CG: no Stage-II kernel) answering the requests.  CG stalls near
+    1e-2 relative (the JAX package's remark), so it is not held to the LU
+    route, whose residuals are printed beside it: the answers must be
+    finite, and every instance's primal residual after the polish below its
+    residual after the first polish step (the JAX package's own criterion
+    for CG)."""
+    import torch
+    from iadmm_tpu_torch.api import make_solver
+    tag = "q serve cg"
+    kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
+              feas_rest_num=POLISH_STEPS, stage2_impl="cg", **profile)
+    solve = make_solver(params, **kw)
+    zero_counts()   # main path: counted from 0
+    times, prs = [], []
+    for data in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for f in ("x", "y", "z", "primal_res", "dual_res", "obj"):
+            if not bool(getattr(res, f).isfinite().all()):
+                raise PhaseError(f"{tag}: non-finite {f}")
+        prs.append(res.primal_res)
+    delta = launch_counts()
+    first = make_solver(params, **dict(kw, feas_rest_num=1))(
+        requests[0]).primal_res
+    lu = make_solver(params, **dict(kw, stage2_impl="lu"))(
+        requests[0]).primal_res
+    row = dict(batch=int(requests[0].batch), ms_per_solve=times,
+               launches={k: v for k, v in delta.items() if v},
+               final_primal_res_max=float(torch.stack(prs).max()),
+               primal_res_req0=[float(v) for v in prs[0]],
+               primal_res_req0_after_step1=[float(v) for v in first],
+               primal_res_req0_lu=[float(v) for v in lu])
+    say(tag, **row)
+    if delta["rollout"] <= 0:
+        raise PhaseError(f"{tag}: the rollout kernel was not launched")
+    for k in ("stage2", "stage2_direct", "stage2_cg"):
+        if delta[k]:
+            raise PhaseError(f"{tag}: the {k} kernel was launched")
+    if not bool((prs[0] < first).all()):
+        raise PhaseError(f"{tag}: a primal residual after the polish is not "
+                         f"below its first polish step's")
+    report[tag] = row
+
+
+def make_lu_polish(data, st, rho_vec):
+    """Primal residuals after the float32 LU Stage II from ``st``."""
+    from iadmm_tpu_torch.evaluation import metrics
+    from iadmm_tpu_torch.solvers.exact import feasibility_restoration
+    out = feasibility_restoration(st, data, SIGMA, rho_vec, POLISH_STEPS)
+    pr, _ = metrics.primal_dual_residual(out.x, out.y, out.z, data.Q,
+                                         data.p, data.A0, "default")
+    return pr
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -2070,7 +2512,7 @@ def main() -> int:
     cell_all += g["cell"]
     say("training path launches", **g)
     phase_step_vs_fused(params, scaled_t, report)
-    del data_b, requests, data_t, scaled_t
+    del requests, data_t, scaled_t
     torch.cuda.empty_cache()
 
     ds_sp, gen_s = sparse_dataset()
@@ -2112,6 +2554,10 @@ def main() -> int:
     del scaled16
     say("segment route path launches",
         **{cdt: {k: v for k, v in c.items() if v} for cdt, c in p.items()})
+
+    # Stage II's condensed-system solvers, from (b)'s rollout iterates
+    q = phase_condensed(params, data_b, sc, xyz, requests, report)   # (q)
+    say("condensed Stage II path launches", **q)
 
     def entry(name, src, replaces, key, launches):
         r = report[key]
@@ -2179,6 +2625,11 @@ def main() -> int:
         *train_entries("_f32", "train_kernels_f32", m),
         *seg_entries("", "seg_kernels", p["bfloat16"]),
         *seg_entries("_f32", "seg_kernels_f32", p["float32"]),
+        entry("stage2_direct", "iadmm_tpu_torch/kernels/csrc/stage2.cu",
+              "iadmm_tpu/kernels/stage2_kernel.py:59", "stage2_direct",
+              q["direct"]),
+        entry("stage2_cg", "iadmm_tpu_torch/kernels/csrc/stage2.cu",
+              "iadmm_tpu/kernels/stage2_kernel.py:59", "stage2_cg", q["cg"]),
     ]
     for k in kernels:
         if k["launches"] <= 0:

@@ -49,17 +49,15 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
     the CUDA rollout kernel (:mod:`kernels.rollout_kernel`); ``'step'`` runs
     the step path, whose token cell goes through the CUDA cell kernel when
     ``use_pallas`` (the JAX package's name for the switch, kept).
-    ``stage2_impl``: 'lu' (factor once, ``torch.linalg``) or 'fused' (the
-    CUDA Stage-II kernel, solver 'kkt'); 'auto' resolves to 'fused' for
-    CUDA data and 'lu' for CPU data.  'fused-direct' and 'cg' are not
-    ported yet.
+    ``stage2_impl``: 'lu' (factor once, ``torch.linalg``), 'fused' (the
+    CUDA Stage-II kernel, solver 'kkt'), 'fused-direct' (the same kernel's
+    condensed-system M⁻¹ solver 'direct', accuracy-limited at cond(M)) or
+    'cg' (matrix-free Jacobi CG in plain PyTorch, :mod:`solvers.cg`);
+    'auto' resolves to 'fused' for CUDA data and 'lu' for CPU data.  On
+    CPU data the fused solvers run their plain twins.
     """
     if stage2_impl not in _STAGE2_IMPLS:
         raise ValueError(f"unknown stage2_impl {stage2_impl!r}")
-    if stage2_impl in ("fused-direct", "cg"):
-        raise NotImplementedError(
-            f"stage2_impl={stage2_impl!r} is not ported to PyTorch yet; "
-            f"see ROADMAP.md (Queue 2)")
     if rollout_impl not in ("step", "fused"):
         raise ValueError(f"unknown rollout_impl {rollout_impl!r}")
     check_schedule_len(params, num_iters)
@@ -98,11 +96,15 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
             impl = stage2_impl
             if impl == "auto":
                 impl = "fused" if data.p.is_cuda else "lu"
-            if impl == "fused":
+            if impl in ("fused", "fused-direct"):
                 from .kernels.stage2_kernel import fused_stage2
-                st, _, _ = fused_stage2(st, data, rho_vec,
-                                        num_iters=feas_rest_num,
-                                        sigma=sigma, solver="kkt")
+                st, _, _ = fused_stage2(
+                    st, data, rho_vec, num_iters=feas_rest_num, sigma=sigma,
+                    solver="direct" if impl == "fused-direct" else "kkt")
+            elif impl == "cg":
+                from .solvers.cg import feasibility_restoration_cg
+                st = feasibility_restoration_cg(st, data, sigma, rho_vec,
+                                                feas_rest_num)
             else:
                 st = exact_mod.feasibility_restoration(
                     st, data, sigma, rho_vec, feas_rest_num)

@@ -304,4 +304,4 @@ def run_osqp_baseline(cfg: ExperimentConfig, ds: RawDataset,
     ported yet."""
     raise NotImplementedError(
         "the OSQP baseline needs the QP oracle, which is not ported to "
-        "PyTorch yet; see ROADMAP.md (Queue 1 items 3 and 9)")
+        "PyTorch yet; see ROADMAP.md (Queue 1, the QP oracle)")

@@ -2,14 +2,12 @@
 
     python -m iadmm_tpu_torch.kernels.bounds
 
-prints the bounds of the TPU kernels the port has not ported yet, from
-their shapes: Stage II's ``'direct'`` and ``'cg'`` solvers of
-``stage2_kernel.py`` at the serving shape (B=8, N=20 polish steps,
-QP_1000_500_500, 100 CG iterations).  ``chip_smoke.py`` computes the
-ported kernels' bounds from the inputs of its run with :func:`cell`,
-:func:`train_fwd`, :func:`train_bwd`, :func:`train_fwd_seg`,
-:func:`train_bwd_seg` (each at the bf16 or the float32 profile),
-:func:`stage2`, :func:`bsr_matvec` and ``bound_ms``.
+prints the bounds of the TPU kernels the port has not ported yet (none are
+left).  ``chip_smoke.py`` computes the ported kernels' bounds from the
+inputs of its run with :func:`cell`, :func:`train_fwd`, :func:`train_bwd`,
+:func:`train_fwd_seg`, :func:`train_bwd_seg` (each at the bf16 or the
+float32 profile), :func:`stage2` (each solver), :func:`bsr_matvec` and
+``bound_ms``.
 
 A bound is the larger of two times: the bytes the work must move (each
 input read once, each output written once) over the memory rate, and its
@@ -141,8 +139,9 @@ def stage2(B, N, n, m, solver="kkt", cg_iters=100, refine=None):
     (``'kkt'``: one Ã⁻¹ matvec and ``refine`` passes of Ã and Ã⁻¹;
     ``'direct'``: one M⁻¹ matvec and ``refine`` passes of M = Q + σI +
     A0ᵀρA0 and M⁻¹; ``'cg'``: cg_iters + 1 matvecs of M, the most its loop
-    runs), the matvecs of the right-hand side and the residuals, and the
-    elementwise work."""
+    runs: pass the mean count of unmasked iterations a step that a run's
+    data needed, which may be fractional), the matvecs of the right-hand
+    side and the residuals, and the elementwise work."""
     if refine is None:
         refine = 0 if solver == "kkt" else 2
     S = n + m
@@ -182,15 +181,13 @@ def bsr_matvec(tiles, B, m, n, tm=8, tn=128, tile_bytes=2):
     return bound_ms(nbytes, f32_ops=ops)
 
 
-def unported(B=8, N=20, n=1000, m=1000, cg_iters=100):
-    """Bounds of the TPU kernels not ported yet, at the serving shape."""
-    out = {}
-    for solver in ("direct", "cg"):
-        ms, by = stage2(B, N, n, m, solver, cg_iters)
-        out[f"_stage2_kernel solver={solver!r} (stage2_kernel.py:59)"] = \
-            dict(bound_ms=ms, bound_by=by)
-    return out
+def unported():
+    """Bounds of the TPU kernels not ported yet: none is left (Stage II's
+    'direct' and 'cg' solvers were the last; :func:`stage2` covers them)."""
+    return {}
 
 
 if __name__ == "__main__":
-    print(json.dumps(unported(), indent=1))
+    left = unported()
+    print(json.dumps(left, indent=1) if left
+          else "every TPU kernel of the repository is ported")

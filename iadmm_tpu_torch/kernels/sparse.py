@@ -73,7 +73,8 @@ def from_dense(data: QPBatch, fmt: str, tile=(8, 128),
     if fmt == "bcoo":
         raise NotImplementedError(
             "the BCOO sparse format is not ported to PyTorch yet; use "
-            "sparse_format='bsr' (see ROADMAP.md, Queue 1 item 13)")
+            "sparse_format='bsr' (see ROADMAP.md, Queue 1, the BCOO sparse "
+            "route)")
     if fmt != "bsr":
         raise ValueError(f"unknown sparse format {fmt!r}")
     dev = data.p.device
@@ -154,7 +155,7 @@ def make_sparse_chunk_loss(sigma, chunk_len: int, outer_T: int,
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel sparse training is not ported to PyTorch yet; "
-            "see ROADMAP.md (Queue 1 item 14)")
+            "see ROADMAP.md (Queue 1, distribution)")
 
     def loss_fn(p, st, data, t0):
         return chunk_loss_sparse(p, st, data, sigma, chunk_len, outer_T, t0,

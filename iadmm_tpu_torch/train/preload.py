@@ -50,7 +50,7 @@ def preload_sparse_cache(ds: RawDataset, ids: np.ndarray, n_batches: int,
     if cfg.sparse_format != "bsr":
         raise NotImplementedError(
             f"the {cfg.sparse_format!r} sparse cache is not ported to "
-            f"PyTorch yet; see ROADMAP.md (Queue 1 item 13)")
+            f"PyTorch yet; see ROADMAP.md (Queue 1, the BCOO sparse route)")
     B = batch_size
     dt = sparse_mod.tile_dtype(cfg.matvec_mode)
 

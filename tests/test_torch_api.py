@@ -34,7 +34,9 @@ def problem():
 
 
 @pytest.mark.parametrize("rollout_impl,stage2_impl", [("fused", "fused"),
-                                                      ("step", "lu")])
+                                                      ("step", "lu"),
+                                                      ("fused", "fused-direct"),
+                                                      ("fused", "cg")])
 def test_make_solver_matches_jax(problem, rollout_impl, stage2_impl):
     jdata, tdata, jp, tp = problem
     kw = dict(FAST, hidden_dim=HID, num_iters=K, rollout_impl=rollout_impl,
@@ -57,10 +59,10 @@ def test_solve_qp_batch_auto_is_lu_on_cpu(problem):
 
 
 def test_make_solver_rejects_unported_routes(problem):
+    """Every Stage-II route is ported; an unknown one and a rollout longer
+    than the learned schedules are rejected."""
     _, _, _, tp = problem
-    for impl in ("fused-direct", "cg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.make_solver(tp, hidden_dim=HID, num_iters=K,
-                             stage2_impl=impl)
+    with pytest.raises(ValueError, match="unknown stage2_impl"):
+        tapi.make_solver(tp, hidden_dim=HID, num_iters=K, stage2_impl="qr")
     with pytest.raises(ValueError, match="test_outer_T"):
         tapi.make_solver(tp, hidden_dim=HID, num_iters=K + 1)

@@ -81,14 +81,13 @@ def test_segment_bounds_count_the_checkpoints():
 def test_stage2_bounds_at_the_serving_shape(solver):
     """B=8, N=20, n=m=1000: 'kkt' reads the (n+m)² inverse (bytes bound,
     0.0574 ms); 'direct' the n² one and runs two refinement passes; 'cg'
-    101 matvecs of M a step (operations bound).  unported() lists 'direct'
-    and 'cg'."""
+    101 matvecs of M a step (operations bound).  Every solver is ported:
+    unported() is empty."""
     ms, by = bounds.stage2(8, 20, 1000, 1000, solver)
     want = {"kkt": (0.0574, "bytes"), "direct": (0.0670, "operations"),
             "cg": (1.4736, "operations")}[solver]
     assert (round(ms, 4), by) == want
-    names = " ".join(bounds.unported())
-    assert (repr(solver) in names) == (solver != "kkt")
+    assert bounds.unported() == {}
     with pytest.raises(ValueError, match="solver"):
         bounds.stage2(8, 20, 1000, 1000, "lu")
 

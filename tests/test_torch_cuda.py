@@ -5,7 +5,11 @@ only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: bf16 outputs to 2e-2 (a few bf16 ulps after other summation
-orders); float32 Stage II to 1e-4 relative; the float32 cell to 1e-5 of
+orders); float32 Stage II to 1e-4 relative ('kkt'; 'direct' and 'cg'
+at short runs, the 'cg' one with masking and across warm-started steps),
+and over longer runs of the condensed solvers to 4x
+the plain twin's own gap under reorderings of the variables and rows (the
+system's conditioning amplifies float32 rounding); the float32 cell to 1e-5 of
 max|ref| (a bf16 H'/C' to one bf16 ulp) and the float32 training pair to
 1e-4 of each leaf's max|ref| at J=6 (float32 sums in another order, then
 6 steps of the recurrence), with TF32 off in the plain versions.
@@ -14,6 +18,7 @@ max|ref| (a bf16 H'/C' to one bf16 ulp) and the float32 training pair to
 import pytest
 import torch
 
+from chip_smoke import permuted_polish, update_of
 from iadmm_tpu_torch.kernels import lstm_cell as tcell
 from iadmm_tpu_torch.kernels import rollout_kernel as troll
 from iadmm_tpu_torch.kernels import stage2_kernel as ts2
@@ -129,6 +134,89 @@ def test_stage2_matches_plain(dev, refine):
                            refine=refine)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _stage2_inputs(dev, seed=0):
+    data = _qp(dev)
+    B, n, m = data.batch, data.num_var, data.num_constr
+    g = torch.Generator().manual_seed(seed)
+    st = IterState(*(0.1 * torch.randn(s, generator=g).to(dev)
+                     for s in ((B, n), (B, m), (B, m), (B, n + m))),
+                   H=torch.zeros((B, 1, 1), device=dev),
+                   C=torch.zeros((B, 1, 1), device=dev))
+    rho = rho_vector(torch.tensor(0.1), data.eq_mask).float()
+    return data, st, rho
+
+
+def _tight(kernel, plain, data, st, rho, op, **kw):
+    """A short run: every output to 1e-4 of max(1, max|ref|)."""
+    out = kernel(st, data, rho, op, **kw)
+    ref = plain(st, data, rho, op, **kw)
+    for a, b in zip(out[:6], ref[:6]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(1.0, float(b.abs().max())))
+    return out, ref
+
+
+def _held_to_plain(kernel, plain, data, st, rho, op, full):
+    """The ``full`` run: each output to within 4x the plain twin's own gap
+    under two reorderings of the variables and rows (float32 rounding that
+    the condensed system's conditioning amplifies), at least 4 float32 ulps
+    of its max|ref|; two calls bitwise equal."""
+    out = kernel(st, data, rho, op, **full)
+    ref = plain(st, data, rho, op, **full)
+    perms = [permuted_polish(plain, data, st, rho, op, seed, **full)
+             for seed in (3, 5)]
+    for k, (a, b) in enumerate(zip(out[:6], ref[:6])):
+        scale = max(float(b.abs().max()), 1e-30)
+        own = max(float((p[k] - b).abs().max()) for p in perms) / scale
+        gap = float((a - b).abs().max()) / scale
+        assert gap <= max(4 * own, 4 * 2.0 ** -23), (k, gap, own)
+    again = kernel(st, data, rho, op, **full)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    return out, ref
+
+
+def test_stage2_direct_matches_plain(no_tf32):
+    """'direct': tight at N=1 with refine 0 and 2 (and the plain update of
+    the kernel's own xt), relative at N=6, refine 2; one launch a polish
+    step."""
+    data, st, rho = _stage2_inputs(no_tf32)
+    P = ts2.direct_inverse(data, rho, 1e-4)
+    before = ts2.fused_stage2.launches_direct
+    for refine in (0, 2):
+        out, _ = _tight(ts2.stage2_direct_cuda, ts2.stage2_direct_plain,
+                        data, st, rho, P, num_iters=1, sigma=1e-4,
+                        refine=refine)
+        upd = update_of(out[3], data, st, rho, torch.float32)
+        for a, b in zip(out[:6], upd):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=1e-4 * max(1.0, float(b.abs().max())))
+    _held_to_plain(ts2.stage2_direct_cuda, ts2.stage2_direct_plain, data, st,
+                   rho, P, dict(num_iters=6, sigma=1e-4, refine=2))
+    assert ts2.fused_stage2.launches_direct == before + 2 + 2 * 6
+
+
+def test_stage2_cg_matches_plain(no_tf32):
+    """'cg': tight at N=1 and N=3 with 3 CG iterations (the warm start
+    across steps) and at N=1 with tol 0.1, where the two instances stop at
+    different iterations (6 and 7 in the plain twin); relative at N=4 with
+    30; the unmasked-iteration counts equal; one launch a polish step."""
+    data, st, rho = _stage2_inputs(no_tf32)
+    d = ts2.cg_diag(data, rho, 1e-4)
+    kern, plain = ts2.stage2_cg_cuda, ts2.stage2_cg_plain
+    before = ts2.fused_stage2.launches_cg
+    for N, iters, tol in ((1, 3, 1e-8), (3, 3, 1e-8), (1, 30, 0.1)):
+        out, ref = _tight(kern, plain, data, st, rho, d, num_iters=N,
+                          sigma=1e-4, cg_iters=iters, tol=tol)
+        assert torch.equal(out[6], ref[6])
+    its = out[6].tolist()
+    assert len(set(its)) == 2 and max(its) < 30, its
+    out, ref = _held_to_plain(kern, plain, data, st, rho, d,
+                              dict(num_iters=4, cg_iters=30, sigma=1e-4,
+                                   tol=1e-8))
+    assert ts2.fused_stage2.launches_cg == before + 5 + 2 * 4
+    assert torch.equal(out[6], ref[6])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
