@@ -11,14 +11,17 @@ float32 gates, float32 matvecs), two on the segment-recompute training
 route, which the shipped config takes from ``--batch_size 9``, and one on
 Stage II's condensed-system solvers:
 
-  (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16)
-      and on a ragged small case;
+  (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16),
+      on a ragged small case and on a ragged one at the flagship's width
+      (B=2, S=1037, h=808), two calls bitwise equal, with the H·U TFLOP/s
+      of the whole cell call beside torch.matmul of H·U alone;
   (b) the rollout kernel against its plain version (B=8): held to the
       plain version after K_CHECK=6 steps, and after K=100 to within
       MAX_GAP_OVER_ROUNDING times the gap between the plain version and
       itself with permuted hidden units (its own rounding, amplified by
       the untrained recurrence); timed at K=100;
-  (c) the Stage-II 'kkt' kernel against its plain version (B=8, N=20);
+  (c) the Stage-II 'kkt' kernel against its plain version (B=8, N=20),
+      timed beside N x torch.bmm of Ã⁻¹ by b̃;
   (d) serving: ``make_solver`` with the fast profile answers 3 requests of
       B=8 fresh instances (rollout_impl='fused', Stage II 'fused');
   (e) the same with rollout_impl='step', whose cell goes through the cell
@@ -29,7 +32,10 @@ Stage II's condensed-system solvers:
       J=100 the backward on the same streams, tightly, and end to end each
       output and gradient leaf relative to that leaf's own rounding gap in
       the plain pair (the largest under three permutations of the hidden
-      units); the backward twice, bitwise equal; timed at J=100;
+      units); the backward twice, bitwise equal; timed at J=100; then the
+      pair at J=6 on ragged shapes (B·S = 1174, h = 212 and 808), and the
+      backward's bf16 GEMM cores alone (dH, dU at B=2 and 16) against the
+      float32 product of their operands, timed beside torch.matmul;
   (g) training: ``harness.train`` with train_backend='fused' and the fast
       profile, 2 epochs on a generated QP_1000_500_500 dataset (16
       instances, B=2, J = outer_T = 100), then ``make_solver`` serves one
@@ -130,6 +136,15 @@ is in the repository).  Exits non-zero without a CUDA device.  Longer
 output (ptxas reports, ``report.json``, the CLI's output) goes to
 ``chiprun_out/chip_smoke/``; the training runs' checkpoints and datasets go
 to ``results/chip_smoke*/`` and are removed at the end.
+
+Two checkouts can be held bitwise equal (a kernel change that must not
+move a result): the bf16 cell at six shapes and both state dtypes, a J=6
+bf16 training forward at B=2, and (d)'s first request with its LU and
+pre-polish references, in one file per checkout (copy this script into
+an older checkout first):
+
+    python3 chip_smoke.py --snapshot a.pt
+    python3 chip_smoke.py --compare a.pt b.pt
 """
 
 from __future__ import annotations
@@ -155,6 +170,12 @@ K_CHECK = 6
 MAX_POLISH_RATIO = 1e-2
 MAX_GAP_OVER_ROUNDING = 4.0
 TRAIN_BATCH, TRAIN_DATA, TRAIN_EPOCHS = 2, 16, 2
+# The ragged cases of (a) and (f): M not a multiple of the cores' 128-row
+# tile, h not a multiple of the bf16 cell's 32-unit tile (808: TMA-loaded
+# H; 212: not a multiple of 8 either, so the core's producer threads load
+# H and the dU operands)
+RAGGED_S, RAGGED_H = 1037, 808
+RAGGED_TRAIN = ((300, 150, 137, 212), (300, 150, 137, 808))  # n, mi, me, h
 MAX_LEAF_GAP = 2e-2   # per-leaf normalised gradient gap (JAX bf16 test)
 MAX_LEAF_GAP_J100 = 2e-3   # the same, bwd on the same streams at J=100
                            # (<= 3.3e-4 measured on an H100)
@@ -279,19 +300,25 @@ def qp_batch(B, seed, n=N_VAR, mi=N_INEQ, me=N_EQ):
 
 def cell_case(params, B, S, h, hc, g):
     """Weights, inputs and state of one cell case: the flagship weights
-    (U x5: gates of order 1) at h=HIDDEN, else small random ones cut to h."""
+    (U x5: gates of order 1) at h=HIDDEN, else small random ones of width
+    h (cut from the flagship's shapes where h is narrower)."""
     import torch
     from iadmm_tpu_torch.kernels import lstm_cell as lc
     if h == HIDDEN:
         p = dict(params)
         p["U"] = params["U"] * 5.0
-    else:
+    elif h < HIDDEN:
         p = {k: (0.05 * torch.randn(v.shape, generator=g)).cuda()
              for k, v in params.items()}
         p["U"] = p["U"][:h, :4 * h].contiguous()
         p["W"] = p["W"][:, :4 * h].contiguous()
         p["b"] = p["b"][:4 * h].contiguous()
         p["W_h"] = p["W_h"][:h].contiguous()
+    else:
+        shapes = dict(W=(2, 4 * h), U=(h, 4 * h), b=(4 * h,), W_h=(h, 1),
+                      b_h=(1,))
+        p = {k: (0.05 * torch.randn(v, generator=g)).cuda()
+             for k, v in shapes.items()}
     x = torch.randn((B, S, 2), generator=g).cuda()
     H = (0.9 * torch.tanh(torch.randn((B, S, h), generator=g))).to(
         "cuda", hc)
@@ -300,14 +327,21 @@ def cell_case(params, B, S, h, hc, g):
 
 
 def phase_cell(params, report):
-    """(a): the bf16-gate cell kernel against its plain version."""
+    """(a): the bf16-gate cell kernel against its plain version: the
+    serving shape, a small ragged case with a float32 state (the core's
+    producer threads round H as they load it) and a ragged one at the
+    flagship's width (M not a multiple of 128, h not one of 32); two calls
+    bitwise equal; the H·U FLOPs over the whole cell call (U's re-laying,
+    the epilogue and the delta pass included) beside torch.matmul of H·U
+    alone."""
     import torch
     from iadmm_tpu_torch.kernels import bounds
     from iadmm_tpu_torch.kernels import lstm_cell as lc
     g = torch.Generator().manual_seed(11)
     for B, S, h, hc in ((SERVE_BATCH, N_VAR + N_INEQ + N_EQ, HIDDEN,
                          torch.bfloat16),
-                        (2, 37, 20, torch.float32)):
+                        (2, 37, 20, torch.float32),
+                        (2, RAGGED_S, RAGGED_H, torch.bfloat16)):
         keys, x, H, C = cell_case(params, B, S, h, hc, g)
         keys = [k.to(torch.bfloat16) if i in (0, 1, 3) else k
                 for i, k in enumerate(keys)]
@@ -322,26 +356,34 @@ def phase_cell(params, report):
                 compare("cell C'", out[2], ref[2], 1e-5, 2 ** -7)]
         max_abs = max(e[0] for e in errs)
         max_rel = max(e[1] for e in errs)
+        again = lc.cell_forward(*keys, x, H, C, "bfloat16")
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise PhaseError("cell: two calls gave different outputs")
         k_ms = cuda_ms(lambda: lc.cell_forward(*keys, x, H, C, "bfloat16"),
                        reps=10)
         p_ms = cuda_ms(lambda: lc.cell_plain(*keys, x, H, C, "bfloat16"),
                        reps=3)
         M = B * S
         b_ms, b_by = bounds.cell(M, h, "bfloat16", H.element_size())
+        flop = 2.0 * M * h * 4 * h
         row = dict(shape=dict(B=B, S=S, h=h, state=str(hc)),
                    max_abs_err=max_abs, max_rel_err=max_rel,
                    tol="delta: 1e-3 + 1e-2|ref|; H', C': 1e-5 + 2^-7|ref| "
                        "(2 bf16 ulps)",
+                   bitwise_repeat=True,
                    kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                   bound_by=b_by, launches=1)
-        if h == HIDDEN:
+                   bound_by=b_by, launches=1,
+                   cell_tflops=flop / k_ms / 1e9)
+        if S >= RAGGED_S:
             U = keys[1]
-            H2 = H.reshape(M, h)
+            H2 = H.reshape(M, h).to(torch.bfloat16)
             row["library_ms"] = cuda_ms(lambda: torch.matmul(H2, U),
                                         reps=10)
+            row["library_tflops"] = flop / row["library_ms"] / 1e9
             row["library_note"] = ("torch.matmul of the H·U GEMM alone "
                                    "(bf16): a yardstick of the GEMM, not "
                                    "of the cell")
+        if h == HIDDEN:
             report["cell"] = row
         say("a cell", **row)
 
@@ -515,6 +557,12 @@ def phase_stage2(params, data, sc, xyz, report):
                                            sigma=SIGMA, refine=0), reps=3)
     p_ms = cuda_ms(lambda: s2.stage2_plain(st, data, rho, Ainv, num_iters=N,
                                            sigma=SIGMA, refine=0), reps=3)
+    # yardstick: the N solves alone on cuBLAS, Ã⁻¹·b̃ with b̃ of the first
+    # step (each polish step's product; the kernel also forms b̃, the
+    # update and the residuals)
+    bt = torch.cat([SIGMA * st.x - data.p, st.z - st.y / rho], dim=-1)
+    lib_ms = cuda_ms(lambda: [torch.bmm(Ainv, bt[..., None])
+                              for _ in range(N)], reps=3)
     b_ms, b_by = bounds.stage2(B, N, n, m, "kkt")
     row = dict(shape=dict(B=B, n=n, m=m, N=N),
                max_abs_err=max(e[0] for e in errs),
@@ -524,7 +572,9 @@ def phase_stage2(params, data, sc, xyz, report):
                tf32="torch.backends.cuda.matmul.allow_tf32=False, "
                     "torch.backends.cudnn.allow_tf32=False",
                kernel_ms=k_ms, plain_ms=p_ms, inverse_ms=inv_ms,
-               bound_ms=b_ms, bound_by=b_by, launches=N, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, launches=N, library_ms=lib_ms,
+               library_note="yardstick: N x torch.bmm of Ã⁻¹ by b̃ "
+                            "(float32), the solves alone",
                final_primal_res=[float(v) for v in out[4][:, -1]])
     say("c stage2", **row)
     report["stage2"] = row
@@ -762,13 +812,13 @@ def leaf_gaps(outs, refs):
             / max(float(b.abs().max()), 1e-30) for a, b in zip(outs, refs)]
 
 
-def train_inputs(params, data):
+def train_inputs(params, data, h=HIDDEN):
     """(weights, start state, data) tuples of the training kernels for a
     chunk from the zero state, as the harness starts each batch."""
     import torch
     from iadmm_tpu_torch.solvers.step import rho_vector
     from iadmm_tpu_torch.types import init_state
-    st = init_state(data.batch, data.num_var, data.num_constr, HIDDEN,
+    st = init_state(data.batch, data.num_var, data.num_constr, h,
                     device=DEV)
     state = (st.x, st.y, st.z, st.xv, st.H, st.C)
     dd = (data.Q, data.A0, data.p, data.zl, data.zu,
@@ -1002,6 +1052,120 @@ def phase_train_kernels(params, data, report, cdt="bfloat16"):
                bwd_device_ms_by_kernel=breakdown)
     say(prof["tag"], **row)
     report[prof["key"]] = row
+
+
+def phase_train_ragged(report):
+    """(f): the bf16 training pair on ragged shapes (RAGGED_TRAIN: B·S not
+    a multiple of 128, h not one of 32) at J=K_CHECK against its plain
+    pair, with (f)'s J=6 limits: each forward output, every gradient leaf
+    from the backward on the plain streams, and end to end (a leaf that is
+    a cancelling sum, b_h, may instead be within 2x the gap the plain
+    backward shows on the kernel's streams, as tests/test_torch_cuda.py
+    holds it); the backward twice, bitwise equal."""
+    import torch
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    rows = []
+    for n, mi, me, h in RAGGED_TRAIN:
+        data, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=7, n=n, mi=mi,
+                                       me=me))
+        p = lstm_init(torch.Generator().manual_seed(h), 2, h, K_CHECK,
+                      device=DEV)
+        weights, state, dd = train_inputs(p, data, h)
+        B, J = TRAIN_BATCH, K_CHECK
+        kw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype="bfloat16")
+        kpr, kdr, kfin, kstr = tr.train_fwd_cuda(weights, state, dd, **kw)
+        ppr, pdr, pfin, pstr = tr.train_fwd_plain(weights, state, dd, **kw)
+        errs = [compare(f"ragged train fwd {nm}", a, b,
+                        1e-2 * float(b.abs().max()), 2e-2)
+                for nm, a, b in zip(FWD_OUTPUTS, (kpr, kdr, *kfin),
+                                    (ppr, pdr, *pfin))]
+        d = torch.full((B, J), 1.0 / (B * K_ITERS), device=DEV)
+        zero = tuple(torch.zeros_like(f) for f in kfin)
+        kg, _ = tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw)
+        again, _ = tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(kg, again)):
+            raise PhaseError("ragged train bwd: two runs gave different "
+                             "gradients")
+        ks_g, _ = tr.train_bwd_cuda(weights, dd, pstr, zero, d, d, **kw)
+        pg, _ = tr.train_bwd_plain(weights, dd, pstr, zero, d, d, **kw)
+        own, _ = tr.train_bwd_plain(weights, dd, kstr, zero, d, d, **kw)
+        same, e2e = leaf_gaps(ks_g, pg), leaf_gaps(kg, pg)
+        own_gap = leaf_gaps(own, pg)
+        for k, gs, ge, go in zip(GRAD_KEYS, same, e2e, own_gap):
+            if not gs <= MAX_LEAF_GAP:
+                raise PhaseError(f"ragged train bwd on the plain streams "
+                                 f"(h={h}): grad[{k}] gap {gs:.3e} > "
+                                 f"{MAX_LEAF_GAP}")
+            if not (ge <= MAX_LEAF_GAP or ge <= 2 * go):
+                raise PhaseError(f"ragged train bwd end to end (h={h}): "
+                                 f"grad[{k}] gap {ge:.3e} > {MAX_LEAF_GAP} "
+                                 f"and > 2x {go:.3e}")
+        rows.append(dict(shape=dict(B=B, n=n, m=mi + me, h=h, J=J,
+                                    M=B * (n + mi + me)),
+                         max_abs_err_fwd=max(e[0] for e in errs),
+                         fwd_rel_gap=dict(zip(FWD_OUTPUTS,
+                                              (e[1] for e in errs))),
+                         grad_gap_same_streams=dict(zip(GRAD_KEYS, same)),
+                         grad_gap_end_to_end=dict(zip(GRAD_KEYS, e2e)),
+                         plain_bwd_on_kernel_streams_gap=dict(
+                             zip(GRAD_KEYS, own_gap)),
+                         bitwise_repeat=True))
+        del kstr, pstr
+    row = dict(cases=rows,
+               tol=f"fwd 1e-2·max|ref| + 2e-2|ref|; grads per leaf "
+                   f"max|Δ|/max|ref| <= {MAX_LEAF_GAP:g} (end to end: or "
+                   f"<= 2x the plain backward's gap on the kernel's "
+                   f"streams)")
+    say("f train kernels ragged", **row)
+    report["train_kernels_ragged"] = row
+
+
+def phase_gemm_cores(report):
+    """(f): the bf16 GEMM cores alone at the training backward's flagship
+    shapes (B·S = 4,000 and 32,000 rows, h = 800): dH = dpre·Uᵀ and dU +=
+    H_kᵀ·dpre through ``train_rollout.bf16_gemm`` against the float32
+    product of the same bf16 operands (1e-4 of max|ref|: the same exact
+    products summed in another order), each core's achieved TFLOP/s beside
+    torch.matmul of the same operands (bf16 out)."""
+    import torch
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    h, S = HIDDEN, N_VAR + N_INEQ + N_EQ
+    rows = {}
+    for B in (TRAIN_BATCH, SEG_BATCH):
+        M = B * S
+        g = torch.Generator().manual_seed(B)
+        dpre = torch.randn((M, 4 * h), generator=g).to(DEV, torch.bfloat16)
+        U = (0.05 * torch.randn((h, 4 * h), generator=g)).to(
+            DEV, torch.bfloat16)
+        H = torch.tanh(torch.randn((M, h), generator=g)).to(
+            DEV, torch.bfloat16)
+        dH = torch.empty((M, h), device=DEV)
+        dU = torch.zeros((h, 4 * h), device=DEV)
+        tr.bf16_gemm(dpre, U, dH, a_col=False, b_col=True, accumulate=False)
+        tr.bf16_gemm(H, dpre, dU, a_col=True, b_col=False, accumulate=True)
+        eH = compare("gemm dH", dH, dpre.float() @ U.float().T,
+                     1e-4 * float(dH.abs().max()), 0.0)
+        eU = compare("gemm dU", dU, H.float().T @ dpre.float(),
+                     1e-4 * float(dU.abs().max()), 0.0)
+        flop = 2.0 * M * h * 4 * h
+        ms = dict(
+            dH=cuda_ms(lambda: tr.bf16_gemm(dpre, U, dH, a_col=False,
+                                            b_col=True, accumulate=False),
+                       reps=10),
+            dU=cuda_ms(lambda: tr.bf16_gemm(H, dpre, dU, a_col=True,
+                                            b_col=False, accumulate=True),
+                       reps=10),
+            dH_matmul=cuda_ms(lambda: torch.matmul(dpre, U.T), reps=10),
+            dU_matmul=cuda_ms(lambda: torch.matmul(H.T, dpre), reps=10))
+        rows[f"B{B}"] = dict(
+            shape=dict(M=M, h=h, K_dH=4 * h, K_dU=M),
+            max_rel_err=dict(dH=eH[1], dU=eU[1]), ms=ms,
+            tflops={k: flop / v / 1e9 for k, v in ms.items()})
+        del dpre, U, H, dH, dU
+    say("f gemm cores", **rows)
+    report["gemm_cores"] = rows
 
 
 def phase_train(report):
@@ -2443,9 +2607,68 @@ def make_lu_polish(data, st, rho_vec):
     return pr
 
 
-def main() -> int:
+def snapshot(path):
+    """Save this checkout's outputs that ``compare`` holds bitwise."""
+    import torch
+    from iadmm_tpu_torch.api import make_solver
+    from iadmm_tpu_torch.kernels import _build
+    from iadmm_tpu_torch.kernels import lstm_cell as lc
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    _build.build_all()
+    params = lstm_init(torch.Generator().manual_seed(0), 2, HIDDEN, K_ITERS,
+                       device="cuda")
+    out = {}
+    g = torch.Generator().manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    for B, S, h, hc in ((SERVE_BATCH, N_VAR + N_INEQ + N_EQ, HIDDEN, bf),
+                        (2, RAGGED_S, HIDDEN, bf), (2, 37, 20, f32),
+                        (2, 40, 16, bf), (2, 37, 44, bf), (2, 300, 64, f32)):
+        keys, x, H, C = cell_case(params, B, S, h, hc, g)
+        out[f"cell B={B} S={S} h={h} {hc}"] = lc.cell_forward(
+            *keys, x, H, C, "bfloat16")
+    scaled, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
+    w, st, dd = train_inputs(params, scaled)
+    pr, dr, final, _ = ttr.train_fwd_cuda(w, st, dd, t0=0, J=K_CHECK,
+                                          sigma=SIGMA)
+    out["train_fwd J=6"] = (pr, dr, *final)
+    kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
+              feas_rest_num=POLISH_STEPS, sigma=SIGMA, use_pallas=True,
+              gate_dtype="bfloat16", matvec_mode="bf16",
+              stage2_impl="fused", rollout_impl="fused")
+    req = qp_batch(SERVE_BATCH, seed=100)
+    for name, k in (("serve fused", kw),
+                    ("serve lu", dict(kw, stage2_impl="lu")),
+                    ("serve before stage2", dict(kw, feas_rest_num=0))):
+        r = make_solver(params, **k)(req)
+        out[name] = tuple(getattr(r, f) for f in ("x", "y", "z",
+                                                  "primal_res"))
+    torch.save({k: [t.cpu() for t in v] for k, v in out.items()}, path)
+    return 0
+
+
+def compare_snapshots(path_a, path_b):
+    """Print, for each output of two snapshots, whether it is bitwise
+    equal and the largest gap; 1 where any differs."""
+    import torch
+    a, b = torch.load(path_a), torch.load(path_b)
+    same = a.keys() == b.keys()
+    for k in (k for k in a if k in b):
+        eq = [bool(torch.equal(u, v)) for u, v in zip(a[k], b[k])]
+        gap = [float((u.double() - v.double()).abs().max())
+               for u, v in zip(a[k], b[k])]
+        say("compare", output=k, bitwise_equal=eq, max_abs_gap=gap)
+        same = same and all(eq)
+    print(json.dumps({"bitwise_equal": same}), flush=True)
+    return 0 if same else 1
+
+
+def main(argv=()) -> int:
     sys.path.insert(0, ROOT)
     import torch
+    if argv[:1] == ["--compare"] and len(argv) == 3:
+        return compare_snapshots(*argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -2462,6 +2685,12 @@ def main() -> int:
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        if argv[0] != "--snapshot" or len(argv) != 2:
+            print("usage: chip_smoke.py [--snapshot OUT | --compare A B]",
+                  file=sys.stderr)
+            return 2
+        return snapshot(argv[1])
     say("setup", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), card=card,
         tf32="matmul.allow_tf32=False, cudnn.allow_tf32=False")
@@ -2508,6 +2737,8 @@ def main() -> int:
     from iadmm_tpu_torch.scaling import scale_batch
     scaled_t, _ = scale_batch(data_t)
     phase_train_kernels(params, scaled_t, report)
+    phase_train_ragged(report)
+    phase_gemm_cores(report)
     g = phase_train(report)
     cell_all += g["cell"]
     say("training path launches", **g)
@@ -2645,4 +2876,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

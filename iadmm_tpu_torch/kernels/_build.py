@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,9 +32,44 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}  # ptxas register/spill report per source
 
-# Tile constants of csrc/, needed to size the scratch buffers.
-CELL_HB = 16    # hidden units per cell GEMM tile (cell_gemm.cuh::HB)
-KKT_ROWS = 32   # rows per KKT colpass chunk (kkt_matvec.cuh::ROWS)
+
+def header_int(header: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in ``csrc/<header>``:
+    the tile constants the scratch sizes depend on have one source, the
+    header the kernels are compiled from."""
+    text = (CSRC / header).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    if len(found) != 1:
+        raise RuntimeError(f"{header}: expected one constexpr int {name}")
+    return int(found[0])
+
+
+# Tile constants of csrc/, needed to size the scratch buffers and Ut.
+CELL_BM = header_int("cell_gemm.cuh", "BM")   # token rows per cell tile
+CELL_HB = {"bfloat16": header_int("cell_gemm.cuh", "HB_BF16"),
+           "float32": header_int("cell_gemm.cuh", "HB_F32")}  # units a tile
+UT_ALIGN = header_int("cell_gemm.cuh", "UT_ALIGN")  # Ut's row padding
+DELTA_HB = header_int("cell_gemm.cuh", "DELTA_HB")  # units a delta partial
+KKT_ROWS = header_int("kkt_matvec.cuh", "ROWS")  # rows per colpass chunk
+
+
+def cell_tiles(h: int, gate: str) -> int:
+    """Unit tiles of the cell GEMM at hidden width ``h`` for weights of
+    dtype ``gate`` ('bfloat16' or 'float32'): the row count of the
+    backward's row partials."""
+    return -(-h // CELL_HB[gate])
+
+
+def delta_partials(h: int) -> int:
+    """The row count of the cell's delta partials at hidden width ``h``
+    (both profiles)."""
+    return -(-h // DELTA_HB)
+
+
+def cell_row_tiles(M: int) -> int:
+    """Token-row tiles of the cell GEMM over M rows: the row count of the
+    backward's column partials."""
+    return -(-M // CELL_BM)
 
 P = ctypes.c_void_p
 I = ctypes.c_int

@@ -14,7 +14,7 @@
 // kkt_apply (out = Ã·v), features (r and g), iteration (features, the cell
 // GEMM of cell_gemm.cuh, the update).  They are templates on T, the type of
 // the problem data and the cell weights: bf16 (the fast profile: every
-// vector rounded to bf16 before a matvec, tensor-core cell GEMM, bf16 H) or
+// vector rounded to bf16 before a matvec, the wgmma cell GEMM, bf16 H) or
 // float (the float32 profile: nothing rounded, FFMA cell GEMM, float32 H).
 #pragma once
 
@@ -59,7 +59,7 @@ __global__ void finish_kernel(int pass, const float* __restrict__ partial,
 // Reads xv, x, y, z of the iteration's start from the *_in pointers and
 // writes the new ones to *_out; the rollout passes the same pointers for
 // both (in place: each thread reads its element before it writes it).
-__global__ void update_kernel(const float* __restrict__ partial, int ntiles,
+__global__ void update_kernel(const float* __restrict__ partial, int nparts,
                               const float* __restrict__ bh,
                               const float* xv_in, float* xv_out,
                               const float* x_in, float* x_out,
@@ -76,7 +76,7 @@ __global__ void update_kernel(const float* __restrict__ partial, int ntiles,
   if (idx >= M) return;
   const int b = idx / S, s = idx % S;
   float d = 0.f;
-  for (int tile = 0; tile < ntiles; ++tile) d += partial[(size_t)tile * M + idx];
+  for (int t = 0; t < nparts; ++t) d += partial[(size_t)t * M + idx];
   const float xvn = xv_in[idx] - (d + bh[0]);
   xv_out[idx] = xvn;
   if (s < n) {
@@ -115,11 +115,12 @@ struct Problem {
   float sigma;
 };
 
-// The cell's weights: W (2,4h), U (h,4h), Wh (h,) in T; b (4h,), bh (1,)
-// float32.
+// The cell's weights: W (2,4h), Wh (h,) in T; b (4h,), bh (1,) float32;
+// Ut in T: U (h,4h) re-laid for the bf16 cell GEMM (cell_gemm.cuh), U
+// itself for float32 weights.
 struct Weights {
   const void* W;
-  const void* U;
+  const void* Ut;
   const float* b;
   const void* Wh;
   const float* bh;
@@ -163,7 +164,7 @@ inline void features(const Problem& P, int t, const float* xv,
 // features, the cell GEMM (H in T, float32 C; H_f32, when not null, also
 // receives H' unrounded), the update.  The in and out vectors, and C and
 // C_out, may be the same (in place); H_out must not alias H.  r, g
-// (B, n+m), cell_partial (ceil(h/16), B·(n+m)) are scratch.
+// (B, n+m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.
 template <typename T>
 inline void iteration(const Problem& P, const Weights& w, int t,
                       const float* xv, const float* x, const float* y,
@@ -174,10 +175,10 @@ inline void iteration(const Problem& P, const Weights& w, int t,
                       const KktScratch& ks, cudaStream_t s) {
   const int M = P.B * (P.n + P.m);
   features<T>(P, t, xv, x, y, z, r, g, ks, s);
-  cell::launch<T, T, float>(xv, g, 1, 0, H, C, w.W, w.U, w.b, w.Wh, H_out,
-                            C_out, cell_partial, M, w.h, s, H_f32);
+  cell::launch<T, T, float>(xv, g, 1, 0, H, C, w.W, w.Ut, w.b, w.Wh,
+                            H_out, C_out, cell_partial, M, w.h, s, H_f32);
   update_kernel<<<eblocks(M), 256, 0, s>>>(
-      cell_partial, cell::n_tiles(w.h), w.bh, xv, xv_out, x, x_out, y, y_out,
+      cell_partial, cell::n_partials(w.h), w.bh, xv, xv_out, x, x_out, y, y_out,
       z, z_out, P.zl, P.zu, P.rho_raw, P.alpha_raw, P.rhom, t, P.n, P.m,
       P.B);
 }

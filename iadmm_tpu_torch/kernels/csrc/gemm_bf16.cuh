@@ -1,181 +1,78 @@
-// A plain tensor-core GEMM, C (=|+=) A·B, bf16 operands with float32
+// A tensor-core GEMM, C (=|+=) A·B, bf16 operands with float32
 // accumulation, for the two weight-side products of the training backward
 // (train_bwd.cu): dH = dpre·Uᵀ and dU += H_kᵀ·dpre.
 //
-// Either operand may be stored transposed (A_COL: A(i,k) = A[k·lda + i];
-// B_COL: B(k,j) = B[j·ldb + k]); the tile loads read 8 neighbouring elements
-// of the stored layout as one 16-byte load when the leading dimension allows
-// it and write them to shared memory in the row-major layout the wmma
-// fragments take.  Tiles of 128 x 64 x 32, 8 warps of 32 x 32, as in
-// cell_gemm.cuh; loads are synchronous (no cp.async/TMA pipeline yet).
+// hopper.cuh's core on 128 x 128 tiles: wgmma m64n128k16 fed by a TMA ring
+// of 64-deep stages from a producer warp, two CTAs an SM.  Either operand
+// may be stored
+// transposed (A_COL: A(i,k) = A[k·lda + i]; B_COL: B(k,j) = B[j·ldb + k]);
+// that is the operand's major-ness in the TMA box and the wgmma descriptor
+// (dH: A and B K-major; dU: both MN-major), so nothing is transposed
+// through registers.  An operand whose rows the TMA cannot address (a
+// leading dimension that is not a multiple of 8) is loaded by the
+// producer's threads in the same layout.  The grid walks the N tiles
+// fastest, so a row block of A is read from device memory once.
 //
-// Every output element is computed by one thread over the whole K loop and
+// dU at the flagship has only 7 x 25 = 175 output tiles, which two CTAs an
+// SM hold in one wave on 132 SMs, and no split of K: a split-K pass would
+// have to sum h x 4h float32 slabs in a fixed order (no atomics), about 20
+// µs a split at B=2 against the ~25 µs the GEMM itself needs at the
+// tensor-core rate.
+//
+// Every output element is summed by one thread over the whole K loop and
 // stored (ACC: added to C) once, so the result does not depend on the
 // schedule: no atomics, bitwise repeatable.
 #pragma once
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace iadmm {
 namespace gemm {
 
-constexpr int BM = 128;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;
+// The operands are bf16: the TMA reads them unless h is odd (or not a
+// multiple of 8, for H_k), where the one producer warp loads them.
+using GemmShape = hop::Shape<true>;
 
-struct SmemIn {
-  __nv_bfloat16 A[BM * LDA];
-  __nv_bfloat16 B[BK * LDB];
-};
-union Smem {
-  SmemIn in;
-  float C[BM * LDC];
-};
-
-// p[0..7], with the elements at index >= lim read as zero (lim <= 0: all).
-__device__ __forceinline__ void fetch8(const __nv_bfloat16* p, int lim,
-                                       bool vec, __nv_bfloat16 (&out)[8]) {
-  if (vec && lim >= 8) {
-    *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(p);
-    return;
-  }
+template <bool A_K, bool B_K, bool ACC>
+__global__ void __launch_bounds__(GemmShape::THREADS, GemmShape::CTAS)
+    gemm_kernel(const __grid_constant__ CUtensorMap ma,
+                const __grid_constant__ CUtensorMap mb, hop::Operand a,
+                hop::Operand b, float* __restrict__ C, int ldc, int M, int N,
+                int K) {
+  extern __shared__ uint8_t smem_raw[];
+  using Shape = GemmShape;
+  const hop::Ring ring =
+      hop::ring_init<Shape::S, Shape::P>(smem_raw, !a.tma || !b.tma);
+  const int m0 = blockIdx.y * hop::BM;
+  const int n0 = blockIdx.x * hop::BN;
+  float acc[64];
+  hop::mainloop<A_K, B_K, Shape::S, Shape::P>(&ma, &mb, a, b, m0, n0, K,
+                                              ring, acc);
+  if (threadIdx.x >= hop::CONSUMERS) return;
 #pragma unroll
-  for (int e = 0; e < 8; ++e)
-    out[e] = e < lim ? p[e] : __float2bfloat16_rn(0.f);
-}
-
-template <bool A_COL, bool B_COL, bool ACC>
-__global__ void __launch_bounds__(THREADS)
-    gemm_kernel(const __nv_bfloat16* __restrict__ A, int lda,
-                const __nv_bfloat16* __restrict__ Bm, int ldb,
-                float* __restrict__ C, int ldc, int M, int N, int K,
-                int vec) {
-  using namespace nvcuda;
-  __shared__ __align__(128) Smem sm;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int wr = (warp >> 1) * 32;
-  const int wc = (warp & 1) * 32;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __align__(16) __nv_bfloat16 t[8];
-    if (!A_COL) {
-      for (int c = tid; c < BM * BK / 8; c += THREADS) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const int gr = m0 + r, gk = k0 + kc;
-        const int lim = gr < M ? K - gk : 0;
-        if (lim > 0)
-          fetch8(A + (size_t)gr * lda + gk, lim, vec, t);
-        else
-          for (int e = 0; e < 8; ++e) t[e] = zero;
-        *reinterpret_cast<uint4*>(sm.in.A + r * LDA + kc) =
-            *reinterpret_cast<const uint4*>(t);
-      }
-    } else {
-      for (int c = tid; c < BM * BK / 8; c += THREADS) {
-        const int kk = c / (BM / 8), ic = (c % (BM / 8)) * 8;
-        const int gk = k0 + kk, gi = m0 + ic;
-        const int lim = gk < K ? M - gi : 0;
-        if (lim > 0)
-          fetch8(A + (size_t)gk * lda + gi, lim, vec, t);
-        else
-          for (int e = 0; e < 8; ++e) t[e] = zero;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sm.in.A[(ic + e) * LDA + kk] = t[e];
-      }
-    }
-    if (!B_COL) {
-      for (int c = tid; c < BK * BN / 8; c += THREADS) {
-        const int kk = c / (BN / 8), jc = (c % (BN / 8)) * 8;
-        const int gk = k0 + kk, gj = n0 + jc;
-        const int lim = gk < K ? N - gj : 0;
-        if (lim > 0)
-          fetch8(Bm + (size_t)gk * ldb + gj, lim, vec, t);
-        else
-          for (int e = 0; e < 8; ++e) t[e] = zero;
-        *reinterpret_cast<uint4*>(sm.in.B + kk * LDB + jc) =
-            *reinterpret_cast<const uint4*>(t);
-      }
-    } else {
-      for (int c = tid; c < BK * BN / 8; c += THREADS) {
-        const int j = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const int gj = n0 + j, gk = k0 + kc;
-        const int lim = gj < N ? K - gk : 0;
-        if (lim > 0)
-          fetch8(Bm + (size_t)gj * ldb + gk, lim, vec, t);
-        else
-          for (int e = 0; e < 8; ++e) t[e] = zero;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) sm.in.B[(kc + e) * LDB + j] = t[e];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sm.in.A + (wr + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], sm.in.B + kk * LDB + wc + 16 * j, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sm.C + (wr + 16 * i) * LDC + wc + 16 * j,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int r = e / BN, c = e % BN;
-    const int gr = m0 + r, gc = n0 + c;
+  for (int i = 0; i < 64; ++i) {
+    const int gr = m0 + hop::acc_row(i), gc = n0 + hop::acc_col(i);
     if (gr >= M || gc >= N) continue;
-    const float v = sm.C[r * LDC + c];
     float* o = C + (size_t)gr * ldc + gc;
-    *o = ACC ? *o + v : v;
+    *o = ACC ? *o + acc[i] : acc[i];
   }
 }
 
-// vec: every leading dimension a multiple of 8 and both operands 16-byte
-// aligned, so the 8-element loads may be vector loads.
+// C (M, N) (=|+=) A·B over K; see the header for A_COL and B_COL.
 template <bool A_COL, bool B_COL, bool ACC>
 inline void launch(const void* A, int lda, const void* B, int ldb, float* C,
                    int ldc, int M, int N, int K, cudaStream_t stream) {
-  const bool vec = lda % 8 == 0 && ldb % 8 == 0 &&
-                   reinterpret_cast<size_t>(A) % 16 == 0 &&
-                   reinterpret_cast<size_t>(B) % 16 == 0;
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm_kernel<A_COL, B_COL, ACC><<<grid, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(A), lda,
-      static_cast<const __nv_bfloat16*>(B), ldb, C, ldc, M, N, K, vec);
+  constexpr bool A_K = !A_COL, B_K = B_COL;
+  hop::Operand a{A, lda, A_K ? K : M, A_K ? M : K, 0, 0};
+  hop::Operand b{B, ldb, B_K ? K : N, B_K ? N : K, 0, 0};
+  CUtensorMap ma, mb;
+  hop::prepare(a, A_K, &ma);
+  hop::prepare(b, B_K, &mb);
+  hop::allow_smem(gemm_kernel<A_K, B_K, ACC>, GemmShape::SMEM);
+  dim3 grid((N + hop::BN - 1) / hop::BN, (M + hop::BM - 1) / hop::BM);
+  gemm_kernel<A_K, B_K, ACC>
+      <<<grid, GemmShape::THREADS, GemmShape::SMEM, stream>>>(
+          ma, mb, a, b, C, ldc, M, N, K);
 }
 
 }  // namespace gemm

@@ -12,14 +12,15 @@
 //   3. colpass(r)
 //   4. finish(pass 2)     g = Ã·r
 //   5. cell GEMM          gates, C (in place), H' (ping-pong), delta
-//                         partials                         (cell_gemm.cuh)
+//                         partials        (cell_gemm.cuh: wgmma, TMA ring)
 //   6. update             delta = Σ partials + b_h, xv ← xv − delta, then
 //                         the x/z/y update
 // The matrices stay in L2 between passes (24 MB of bf16 data at B = 8).
 //
 // Bound on the H100: the gate GEMM, 2·B·(n+m)·h·4h operations a step
 // (82 GFLOP at B = 8, h = 800: 83 µs at 989 TFLOP/s); the KKT passes read
-// 4 x 3 MB of bf16 data per instance and step, which the L2 serves.
+// 4 x 3 MB of bf16 data per instance and step, which the L2 serves.  U is
+// re-laid for the cell GEMM (Ut) once per rollout, by the wrapper.
 //
 // Numerics follow the TPU kernel: every vector is rounded to bf16 before
 // each matvec (rollout_kernel.py:78-91); the x·W term is float32 xv and g
@@ -33,22 +34,22 @@ using namespace iadmm;
 
 extern "C" {
 
-// Learned iteration t.  Q (B,n,n), A0 (B,m,n), W (2,4h), U (h,4h), Wh (h,)
-// in bf16; everything else float32.  rho_raw/alpha_raw: the raw (K,)
-// schedules; rhom (B,m): 1e3 on equality rows, else 1.  xv (B,n+m), x, y, z
-// are updated in place, C (B·(n+m), h) in place; H_in is read and H_out
-// written (the caller swaps them).  r, g (B,n+m), mv_partial
-// (B, ceil((n+m)/32), n), rowdot (B,m), cell_partial (ceil(h/16), B·(n+m))
-// are scratch.
+// Learned iteration t.  Q (B,n,n), A0 (B,m,n), W (2,4h), Wh (h,) and Ut
+// (U (h,4h) re-laid, cell_gemm.cuh) in bf16; everything else float32.
+// rho_raw/alpha_raw: the raw (K,) schedules; rhom (B,m): 1e3 on equality
+// rows, else 1.  xv (B,n+m), x, y, z are updated in place, C (B·(n+m), h)
+// in place; H_in is read and H_out written (the caller swaps them).  r, g
+// (B,n+m), mv_partial (B, ceil((n+m)/32), n), rowdot (B,m), cell_partial
+// (cell::n_partials(h), B·(n+m)) are scratch.
 int iadmm_rollout_step(int t, const void* Q, const void* A0, const void* p,
                        const void* zl, const void* zu, const void* rhom,
                        const void* rho_raw, const void* alpha_raw,
-                       const void* W, const void* U, const void* b,
-                       const void* Wh, const void* bh, void* xv, void* x,
-                       void* y, void* z, void* r, void* g, void* H_in,
-                       void* H_out, void* C, void* mv_partial, void* rowdot,
-                       void* cell_partial, int B, int n, int m, int h,
-                       float sigma, void* stream) {
+                       const void* W, const void* Ut,
+                       const void* b, const void* Wh, const void* bh,
+                       void* xv, void* x, void* y, void* z, void* r, void* g,
+                       void* H_in, void* H_out, void* C, void* mv_partial,
+                       void* rowdot, void* cell_partial, int B, int n, int m,
+                       int h, float sigma, void* stream) {
   const admm::Problem P{Q,
                         A0,
                         static_cast<const float*>(p),
@@ -61,7 +62,7 @@ int iadmm_rollout_step(int t, const void* Q, const void* A0, const void* p,
                         n,
                         m,
                         sigma};
-  const admm::Weights w{W, U, static_cast<const float*>(b), Wh,
+  const admm::Weights w{W, Ut, static_cast<const float*>(b), Wh,
                         static_cast<const float*>(bh), h};
   const admm::KktScratch ks{static_cast<float*>(mv_partial),
                             static_cast<float*>(rowdot)};
@@ -74,7 +75,7 @@ int iadmm_rollout_step(int t, const void* Q, const void* A0, const void* p,
       static_cast<float*>(r), static_cast<float*>(g),
       static_cast<float*>(cell_partial), ks,
       static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return hop::last_error();
 }
 
 }  // extern "C"

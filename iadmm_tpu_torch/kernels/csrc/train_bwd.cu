@@ -12,9 +12,11 @@
 //                 colpass over (x', y') and the loss adjoint (head_kernel),
 //                 colpass over (dv2, dv1), the ADMM-update adjoint
 //                 (adjoint_kernel) and −Σ dxv for db_h (sum_kernel)
-//   cell adjoint  cell_bwd_kernel: the forward's gate GEMM H_k·U recomputed
-//                 (cell_gemm.cuh's main loop: 128 tokens × the i, f, o, u
-//                 columns of 16 hidden units), with an epilogue that forms
+//   cell adjoint  cell_bwd_bf16 / cell_bwd_f32: the forward's gate GEMM
+//                 H_k·U recomputed (cell_gemm.cuh's tiles: 128 tokens × the
+//                 i, f, o, u columns of 32 hidden units on hopper.cuh's
+//                 wgmma core, or of 16 in float32 FFMA), staged in shared
+//                 memory, with an epilogue that forms
 //                 dH' = sH + ddel·W_hᵀ, dC' and the four dpre quarters, writes
 //                 dpre (in the compute dtype), sC ← dC'·f, and per-tile
 //                 partial sums for dxv, dg (rows) and db, dW, dW_h (columns)
@@ -33,8 +35,9 @@
 // bf16 one the rounding points are the TPU kernel's: dpre before the dU and
 // dH products (train_rollout.py:586), ddel before dH' and dW_h (:563-569),
 // the vectors before every matvec; db, dW, dxv and dg use float32 dpre
-// (:590-603).  The float32 one rounds nothing: dpre is stored in float32 and
-// the three GEMMs run on the CUDA cores (FFMA, no TF32).  The clip mask
+// (:590-603); the three GEMMs run on the tensor cores (wgmma, TMA rings).
+// The float32 one rounds nothing: dpre is stored in float32 and the three
+// GEMMs run on the CUDA cores (FFMA, no TF32).  The clip mask
 // z_t + y/ρ ∈ [zl, zu] is inclusive at both ends (:510-511).
 //
 // Bound on the H100 at B=2, S=2000, h=800, J=100: three GEMMs a step,
@@ -152,13 +155,13 @@ __global__ void sum_kernel(const float* __restrict__ v, int count,
   if (threadIdx.x == 0) out[0] = scale * s;
 }
 
-// The cell adjoint of train_rollout.py:553-620 for the tile (m0, u0):
-// recompute the gate pre-activations, form dpre and the carries, write the
-// partial sums (see the header).  ddel = −dxv (after the update adjoint).
-// T: the compute dtype of H, the weights and dpre.
+// The cell adjoint of train_rollout.py:553-620 for the float32 tile
+// (m0, u0): recompute the gate pre-activations, form dpre and the carries,
+// write the partial sums (see the header).  ddel = −dxv (after the update
+// adjoint).  T: the compute dtype of H, the weights and dpre (float).
 template <typename T>
-__global__ void __launch_bounds__(cell::THREADS)
-    cell_bwd_kernel(const T* __restrict__ H_k, const T* __restrict__ H_n,
+__global__ void __launch_bounds__(cell::THREADS32)
+    cell_bwd_f32(const T* __restrict__ H_k, const T* __restrict__ H_n,
                     const float* __restrict__ C_k,
                     const float* __restrict__ C_n,
                     const float* __restrict__ xv_k,
@@ -173,9 +176,9 @@ __global__ void __launch_bounds__(cell::THREADS)
                     float* __restrict__ pdw1, float* __restrict__ pdwh,
                     int M, int h) {
   using cell::BM;
-  using cell::HB;
-  using cell::LDC;
-  __shared__ __align__(128) cell::Smem sm;
+  constexpr int HB = cell::HB_F32;
+  constexpr int LDC = cell::LDC32;
+  __shared__ __align__(128) cell::Smem32 sm;
   __shared__ float xs_s[BM], gs_s[BM], dd_s[BM];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
@@ -189,7 +192,7 @@ __global__ void __launch_bounds__(cell::THREADS)
     gs_s[tid] = ok ? g[gr] : 0.f;
     dd_s[tid] = ok ? as_operand<T>(-dxv[gr]) : 0.f;
   }
-  cell::mainloop<T>(H_k, U, M, h, m0, u0, sm);
+  cell::mainloop32<T>(H_k, U, M, h, m0, u0, sm);
 
   // Epilogue: thread pair (2r, 2r+1) takes row r, 8 units each.
   const int r = tid >> 1;
@@ -261,6 +264,149 @@ __global__ void __launch_bounds__(cell::THREADS)
       for (int rr = 0; rr < rows; ++rr)
         s += to_f(H_n[(size_t)(m0 + rr) * h + u]) * dd_s[rr];
       pdwh[(size_t)blockIdx.x * h + u] = s;
+    }
+  }
+}
+
+// The cell adjoint for the bf16 tile (blockIdx.y·BM, blockIdx.x·HB_BF16):
+// the gate pre-activations recomputed by hopper.cuh's core (A = H_k, B =
+// Ut, as in the forward), staged in shared memory over the ring's buffers,
+// then cell_bwd_f32's epilogue spread over the CTA's threads: (row, unit)
+// pairs form dpre, sC and the dpre quarters in place; then the row
+// partials (dxv, dg) and the column partials (db, dW, dW_h), each summed
+// by one thread in a fixed order.
+using CellBwdShape = hop::Shape<true>;  // H_k: bf16, as the GEMMs' operands
+
+__global__ void __launch_bounds__(CellBwdShape::THREADS, CellBwdShape::CTAS)
+    cell_bwd_bf16(const __grid_constant__ CUtensorMap ma,
+                  const __grid_constant__ CUtensorMap mb, hop::Operand a,
+                  hop::Operand b, const __nv_bfloat16* __restrict__ H_n,
+                  const float* __restrict__ C_k,
+                  const float* __restrict__ C_n,
+                  const float* __restrict__ xv_k,
+                  const float* __restrict__ g,
+                  const float* __restrict__ dxv,
+                  const __nv_bfloat16* __restrict__ W,
+                  const float* __restrict__ bias,
+                  const __nv_bfloat16* __restrict__ Wh,
+                  const float* __restrict__ sH, float* __restrict__ sC,
+                  __nv_bfloat16* __restrict__ dpre, float* __restrict__ pxv,
+                  float* __restrict__ pg, float* __restrict__ pdb,
+                  float* __restrict__ pdw0, float* __restrict__ pdw1,
+                  float* __restrict__ pdwh, int M, int h) {
+  using T = __nv_bfloat16;
+  using cell::BM;
+  constexpr int HB = cell::HB_BF16;
+  constexpr int BN = 4 * HB;
+  constexpr int LDS = BN + 4;  // staging row: padded against bank conflicts
+  using Shape = CellBwdShape;
+  constexpr int NT = Shape::THREADS;
+  static_assert(BM * LDS * 4 <= Shape::S * 2 * hop::TILE_BYTES,
+                "the staging tile fits in the ring");
+  static_assert(BM + BN + HB <= NT, "one thread per row, column, unit");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float xs_s[BM], gs_s[BM], dd_s[BM], w0_s[BN], w1_s[BN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM;
+  const int u0 = blockIdx.x * HB;
+  const int h4 = 4 * h;
+  const int rows = min(BM, M - m0);
+  if (tid < BM) {
+    const int gr = m0 + tid;
+    const bool ok = gr < M;
+    xs_s[tid] = ok ? xv_k[gr] : 0.f;
+    gs_s[tid] = ok ? g[gr] : 0.f;
+    dd_s[tid] = ok ? as_operand<T>(-dxv[gr]) : 0.f;
+  } else if (tid < BM + BN) {
+    const int c = tid - BM, u = u0 + c % HB, col = (c / HB) * h + u;
+    w0_s[c] = u < h ? to_f(W[col]) : 0.f;
+    w1_s[c] = u < h ? to_f(W[h4 + col]) : 0.f;
+  }
+  const hop::Ring ring =
+      hop::ring_init<Shape::S, Shape::P>(smem_raw, !a.tma || !b.tma);
+  float acc[64];
+  hop::mainloop<true, true, Shape::S, Shape::P>(
+      &ma, &mb, a, b, m0, blockIdx.x * hop::BN, h, ring, acc);
+  __syncthreads();  // every stage consumed: the ring becomes the staging tile
+  float* st = reinterpret_cast<float*>(ring.base);
+  if (tid < hop::CONSUMERS) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      st[hop::acc_row(i) * LDS + hop::acc_col(i)] = acc[i];
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < BM * HB; idx += NT) {
+    const int r = idx / HB, j = idx % HB;
+    const int gr = m0 + r, u = u0 + j;
+    float* sp = st + r * LDS + j;
+    if (gr >= M || u >= h) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sp[q * HB] = 0.f;
+      continue;
+    }
+    const float a0 = xs_s[r], a1 = gs_s[r], dd = dd_s[r];
+    float pre[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = q * h + u;
+      pre[q] = sp[q * HB] + a0 * to_f(W[col]) + a1 * to_f(W[h4 + col]) +
+               bias[col];
+    }
+    const size_t o = (size_t)gr * h + u;
+    const float ig = sigmoidf(pre[0]), fg = sigmoidf(pre[1]);
+    const float og = sigmoidf(pre[2]), ug = tanhf(pre[3]);
+    const float tC = tanhf(C_n[o]);
+    const float dHn = sH[o] + dd * to_f(Wh[u]);
+    const float dCn = sC[o] + dHn * og * (1.0f - tC * tC);
+    float dp[4];
+    dp[2] = dHn * tC * og * (1.0f - og);
+    dp[0] = (dCn * ug) * ig * (1.0f - ig);
+    dp[3] = (dCn * ig) * (1.0f - ug * ug);
+    dp[1] = (dCn * C_k[o]) * fg * (1.0f - fg);
+    sC[o] = dCn * fg;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dpre[(size_t)gr * h4 + q * h + u] = from_f<T>(dp[q]);
+      sp[q * HB] = dp[q];
+    }
+  }
+  __syncthreads();
+
+  if (tid < BM) {  // row partials over this tile's units
+    const int gr = m0 + tid;
+    if (gr < M) {
+      float axv = 0.f, ag = 0.f;
+      for (int c = 0; c < BN; ++c) {
+        const float d = st[tid * LDS + c];
+        axv += d * w0_s[c];
+        ag += d * w1_s[c];
+      }
+      pxv[(size_t)blockIdx.x * M + gr] = axv;
+      pg[(size_t)blockIdx.x * M + gr] = ag;
+    }
+  } else if (tid < BM + BN) {  // column partials over this tile's rows
+    const int c = tid - BM, q = c / HB, u = u0 + c % HB;
+    if (u < h) {
+      float sb = 0.f, s0 = 0.f, s1 = 0.f;
+      for (int rr = 0; rr < rows; ++rr) {
+        const float d = st[rr * LDS + c];
+        sb += d;
+        s0 += xs_s[rr] * d;
+        s1 += gs_s[rr] * d;
+      }
+      const size_t o = (size_t)blockIdx.y * h4 + q * h + u;
+      pdb[o] = sb;
+      pdw0[o] = s0;
+      pdw1[o] = s1;
+    }
+  } else if (tid < BM + BN + HB) {
+    const int u = u0 + tid - BM - BN;
+    if (u < h) {
+      float s = 0.f;
+      for (int rr = 0; rr < rows; ++rr)
+        s += to_f(H_n[(size_t)(m0 + rr) * h + u]) * dd_s[rr];
+      pdwh[(size_t)blockIdx.y * h + u] = s;
     }
   }
 }
@@ -365,6 +511,39 @@ __global__ void sched_kernel(const float* __restrict__ drv,
   }
 }
 
+// The cell adjoint's launch for T data and weights; H_k, H_n: slots k and
+// k+1 of the H stream.
+void cell_bwd(const float* H_k, const float* H_n, const void* Ut,
+              const float* C_k, const float* C_n, const float* xv_k,
+              const float* g, const float* dxv, const void* W, const void* U,
+              const float* b, const void* Wh, const float* sH, float* sC,
+              float* dpre, float* pxv, float* pg, float* pdb, float* pdw0,
+              float* pdw1, float* pdwh, int M, int h, cudaStream_t s) {
+  dim3 grid((M + cell::BM - 1) / cell::BM, cell::n_tiles<float>(h));
+  cell_bwd_f32<float><<<grid, cell::THREADS32, 0, s>>>(
+      H_k, H_n, C_k, C_n, xv_k, g, dxv, static_cast<const float*>(W),
+      static_cast<const float*>(U), b, static_cast<const float*>(Wh), sH, sC,
+      dpre, pxv, pg, pdb, pdw0, pdw1, pdwh, M, h);
+}
+void cell_bwd(const __nv_bfloat16* H_k, const __nv_bfloat16* H_n,
+              const void* Ut, const float* C_k, const float* C_n,
+              const float* xv_k, const float* g, const float* dxv,
+              const void* W, const void* U, const float* b, const void* Wh,
+              const float* sH, float* sC, __nv_bfloat16* dpre, float* pxv,
+              float* pg, float* pdb, float* pdw0, float* pdw1, float* pdwh,
+              int M, int h, cudaStream_t s) {
+  hop::Operand a, bo;
+  CUtensorMap ma, mb;
+  cell::operands(H_k, 0, Ut, M, h, a, bo, &ma, &mb);
+  hop::allow_smem(cell_bwd_bf16, CellBwdShape::SMEM);
+  dim3 grid(cell::n_tiles<__nv_bfloat16>(h), (M + cell::BM - 1) / cell::BM);
+  cell_bwd_bf16<<<grid, CellBwdShape::THREADS, CellBwdShape::SMEM, s>>>(
+      ma, mb, a, bo, H_n, C_k, C_n, xv_k, g, dxv,
+      static_cast<const __nv_bfloat16*>(W), b,
+      static_cast<const __nv_bfloat16*>(Wh), sH, sC, dpre, pxv, pg, pdb,
+      pdw0, pdw1, pdwh, M, h);
+}
+
 // The two weight-side GEMMs in the compute dtype.
 template <bool A_COL, bool B_COL, bool ACC>
 void weight_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
@@ -386,9 +565,10 @@ int bwd_step(
     int k, int t, int col, int L, const void* Q, const void* A0,
     const void* p, const void* zl, const void* zu, const void* rhom,
     const void* rho_raw, const void* alpha_raw, const void* W, const void* U,
-    const void* b, const void* Wh, const void* hs, const void* cs,
-    const void* xs, const void* ys, const void* zs, const void* xvs,
-    const void* dpr, const void* ddr, void* dx, void* dy, void* dz, void* dxv,
+    const void* Ut, const void* b, const void* Wh, const void* hs,
+    const void* cs, const void* xs, const void* ys, const void* zs,
+    const void* xvs, const void* dpr, const void* ddr, void* dx, void* dy,
+    void* dz, void* dxv,
     void* sH, void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh,
     void* drho, void* dalpha, void* r, void* g, void* dv, void* dg, void* drr,
     void* dun, void* drv, void* dal, void* scal, void* mv_partial,
@@ -400,7 +580,7 @@ int bwd_step(
   const int nch = kkt::n_chunks(n, m);
   const int eb = admm::eblocks(M);
   const int n_mt = (M + cell::BM - 1) / cell::BM;
-  const int n_ut = cell::n_tiles(h);
+  const int n_ut = cell::n_tiles<T>(h);
   const size_t slab = (size_t)M * h;
   const auto* hsb = static_cast<const T*>(hs);
   const auto* csf = static_cast<const float*>(cs);
@@ -462,16 +642,13 @@ int bwd_step(
   sum_kernel<<<1, 1024, 0, s>>>(dxvf, M, -1.0f, scalf);
 
   // cell adjoint and the two weight-side GEMMs
-  dim3 cgrid(n_mt, n_ut);
-  cell_bwd_kernel<T><<<cgrid, cell::THREADS, 0, s>>>(
-      hsb + k * slab, hsb + (k + 1) * slab, csf + k * slab,
-      csf + (k + 1) * slab, xv_k, gf, dxvf, static_cast<const T*>(W),
-      static_cast<const T*>(U), static_cast<const float*>(b),
-      static_cast<const T*>(Wh), static_cast<const float*>(sH),
-      static_cast<float*>(sC), dpreb, static_cast<float*>(pxv),
-      static_cast<float*>(pg), static_cast<float*>(pdb),
-      static_cast<float*>(pdw0), static_cast<float*>(pdw1),
-      static_cast<float*>(pdwh), M, h);
+  cell_bwd(hsb + k * slab, hsb + (k + 1) * slab, Ut, csf + k * slab,
+           csf + (k + 1) * slab, xv_k, gf, dxvf, W, U,
+           static_cast<const float*>(b), Wh, static_cast<const float*>(sH),
+           static_cast<float*>(sC), dpreb, static_cast<float*>(pxv),
+           static_cast<float*>(pg), static_cast<float*>(pdb),
+           static_cast<float*>(pdw0), static_cast<float*>(pdw1),
+           static_cast<float*>(pdwh), M, h, s);
   weight_gemm<false, true, false>(dpreb, h4, static_cast<const T*>(U), h4,
                                   static_cast<float*>(sH), h, M, h, h4, s);
   weight_gemm<true, false, true>(hsb + k * slab, h, dpreb, h4,
@@ -494,7 +671,7 @@ int bwd_step(
                                   static_cast<float*>(drho),
                                   static_cast<float*>(dalpha),
                                   static_cast<float*>(dbh), n, m, B);
-  return static_cast<int>(cudaGetLastError());
+  return hop::last_error();
 }
 
 // One segment (see iadmm_train_bwd_seg) with T data and weights.
@@ -502,9 +679,10 @@ template <typename T>
 int bwd_seg(
     int t0, int col, int L, const void* Q, const void* A0, const void* p,
     const void* zl, const void* zu, const void* rhom, const void* rho_raw,
-    const void* alpha_raw, const void* W, const void* U, const void* b,
-    const void* Wh, const void* bh, void* hs, void* cs, void* xs, void* ys,
-    void* zs, void* xvs, const void* dpr, const void* ddr, void* dx, void* dy,
+    const void* alpha_raw, const void* W, const void* U, const void* Ut,
+    const void* b, const void* Wh, const void* bh, void* hs, void* cs,
+    void* xs, void* ys, void* zs, void* xvs, const void* dpr,
+    const void* ddr, void* dx, void* dy,
     void* dz, void* dxv, void* sH, void* sC, void* dW, void* dU, void* db,
     void* dWh, void* dbh, void* drho, void* dalpha, void* r, void* g,
     void* dv, void* dg, void* drr, void* dun, void* drv, void* dal,
@@ -526,7 +704,7 @@ int bwd_seg(
                         n,
                         m,
                         sigma};
-  const admm::Weights w{W, U, static_cast<const float*>(b), Wh,
+  const admm::Weights w{W, Ut, static_cast<const float*>(b), Wh,
                         static_cast<const float*>(bh), h};
   const admm::KktScratch ks{static_cast<float*>(mv_partial),
                             static_cast<float*>(rowdot)};
@@ -538,7 +716,8 @@ int bwd_seg(
   auto* zf = static_cast<float*>(zs);
   // The recompute: the forward's iterations from the checkpoint in slot 0,
   // without the losses (the TPU kernel's fstep computes none).  pxv is the
-  // cell's delta scratch here (the same shape); the reverse sweep reuses it.
+  // cell's delta scratch here (cell::n_partials(h) rows, at least one per
+  // unit tile); the reverse sweep reuses it.
   for (int k = 0; k < J; ++k) {
     admm::iteration<T>(
         P, w, t0 + k, xvf + (size_t)k * M, xf + (size_t)k * B * n,
@@ -549,14 +728,14 @@ int bwd_seg(
         csf + (k + 1) * slab, nullptr, static_cast<float*>(r),
         static_cast<float*>(g), static_cast<float*>(pxv), ks, s);
   }
-  int err = static_cast<int>(cudaGetLastError());
+  int err = hop::last_error();
   for (int k = J - 1; k >= 0 && err == 0; --k)
     err = bwd_step<T>(k, t0 + k, col + k, L, Q, A0, p, zl, zu, rhom, rho_raw,
-                      alpha_raw, W, U, b, Wh, hs, cs, xs, ys, zs, xvs, dpr,
-                      ddr, dx, dy, dz, dxv, sH, sC, dW, dU, db, dWh, dbh,
-                      drho, dalpha, r, g, dv, dg, drr, dun, drv, dal, scal,
-                      mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
-                      pdwh, B, n, m, h, sigma, stream);
+                      alpha_raw, W, U, Ut, b, Wh, hs, cs, xs, ys, zs, xvs, dpr,
+                      ddr, dx, dy, dz, dxv, sH, sC, dW, dU, db, dWh, dbh, drho,
+                      dalpha, r, g, dv, dg, drr, dun, drv, dal, scal,
+                      mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1, pdwh,
+                      B, n, m, h, sigma, stream);
   return err;
 }
 
@@ -564,23 +743,26 @@ int bwd_seg(
 
 extern "C" {
 
-// Reverse step k (schedule index t).  Data, weights and streams as in
-// train_fwd.cu (slots k and k+1 read): bf16, or float32 when f32.  dpr, ddr
+// Reverse step k (schedule index t).  Data, weights (Ut included) and
+// streams as in train_fwd.cu (slots k and k+1 read): bf16, or float32 when
+// f32.  dpr, ddr
 // (B, J): the cotangents of the losses.  Carries, updated in place: dx
 // (B,n), dy, dz (B,m), dxv (B,n+m), sH, sC (B·(n+m), h) float32.
 // Accumulators, added to: dW (2,4h), dU (h,4h), db (4h,), dWh (h,), dbh
 // (1,); drho, dalpha (J,): slot k written.  The rest is scratch: r, g, dv,
 // dg, drr, dun (B,n+m), drv (B,m), dal (B,n), scal (1,), mv_partial
 // (B, ceil((n+m)/32), n), rowdot (B,m), dpre (B·(n+m), 4h) in the dtype of
-// Q, pxv, pg (ceil(h/16), B·(n+m)), pdb, pdw0, pdw1 (ceil(B·(n+m)/128), 4h),
-// pdwh (ceil(B·(n+m)/128), h).
+// Q, pxv (cell::n_partials(h), B·(n+m)), pg (cell::n_tiles<T>(h),
+// B·(n+m)), pdb, pdw0, pdw1 (ceil(B·(n+m)/cell::BM), 4h), pdwh
+// (ceil(B·(n+m)/cell::BM), h).
 int iadmm_train_bwd_step(
     int k, int t, const void* Q, const void* A0, const void* p,
     const void* zl, const void* zu, const void* rhom, const void* rho_raw,
-    const void* alpha_raw, const void* W, const void* U, const void* b,
-    const void* Wh, const void* hs, const void* cs, const void* xs,
-    const void* ys, const void* zs, const void* xvs, const void* dpr,
-    const void* ddr, void* dx, void* dy, void* dz, void* dxv, void* sH,
+    const void* alpha_raw, const void* W, const void* U, const void* Ut,
+    const void* b, const void* Wh, const void* hs, const void* cs,
+    const void* xs, const void* ys, const void* zs, const void* xvs,
+    const void* dpr, const void* ddr, void* dx, void* dy, void* dz,
+    void* dxv, void* sH,
     void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh, void* drho,
     void* dalpha, void* r, void* g, void* dv, void* dg, void* drr, void* dun,
     void* drv, void* dal, void* scal, void* mv_partial, void* rowdot,
@@ -588,8 +770,8 @@ int iadmm_train_bwd_step(
     void* pdwh, int B, int n, int m, int h, int J, int f32, float sigma,
     void* stream) {
   auto run = f32 ? &bwd_step<float> : &bwd_step<__nv_bfloat16>;
-  return run(k, t, k, J, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, b,
-             Wh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH, sC,
+  return run(k, t, k, J, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, Ut,
+             b, Wh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH, sC,
              dW, dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun, drv,
              dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
              pdwh, B, n, m, h, sigma, stream);
@@ -613,9 +795,10 @@ int iadmm_train_bwd_step(
 int iadmm_train_bwd_seg(
     int t0, int col, int L, const void* Q, const void* A0, const void* p,
     const void* zl, const void* zu, const void* rhom, const void* rho_raw,
-    const void* alpha_raw, const void* W, const void* U, const void* b,
-    const void* Wh, const void* bh, void* hs, void* cs, void* xs, void* ys,
-    void* zs, void* xvs, const void* dpr, const void* ddr, void* dx, void* dy,
+    const void* alpha_raw, const void* W, const void* U, const void* Ut,
+    const void* b, const void* Wh, const void* bh, void* hs, void* cs,
+    void* xs, void* ys, void* zs, void* xvs, const void* dpr,
+    const void* ddr, void* dx, void* dy,
     void* dz, void* dxv, void* sH, void* sC, void* dW, void* dU, void* db,
     void* dWh, void* dbh, void* drho, void* dalpha, void* r, void* g,
     void* dv, void* dg, void* drr, void* dun, void* drv, void* dal,
@@ -623,11 +806,30 @@ int iadmm_train_bwd_seg(
     void* pg, void* pdb, void* pdw0, void* pdw1, void* pdwh, int B, int n,
     int m, int h, int J, int f32, float sigma, void* stream) {
   auto run = f32 ? &bwd_seg<float> : &bwd_seg<__nv_bfloat16>;
-  return run(t0, col, L, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, b,
-             Wh, bh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH,
+  return run(t0, col, L,  Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, Ut,
+             b, Wh, bh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH,
              sC, dW, dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun,
-             drv, dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0,
-             pdw1, pdwh, B, n, m, h, J, sigma, stream);
+             drv, dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
+             pdwh, B, n, m, h, J, sigma, stream);
+}
+
+// The weight-side GEMM core alone, for timing and checking it: C (M, N)
+// (=|+=) A·B over K in bf16 with float32 sums, with the operands and flags
+// of bwd_step's two products: dH (a_col 0, b_col 1, acc 0) or dU (a_col 1,
+// b_col 0, acc 1); gemm_bf16.cuh has A_COL, B_COL.  Other flags:
+// cudaErrorInvalidValue.
+int iadmm_gemm_bf16(int a_col, int b_col, int acc, const void* A, int lda,
+                    const void* B, int ldb, void* C, int ldc, int M, int N,
+                    int K, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* Cf = static_cast<float*>(C);
+  if (!a_col && b_col && !acc)
+    gemm::launch<false, true, false>(A, lda, B, ldb, Cf, ldc, M, N, K, s);
+  else if (a_col && !b_col && acc)
+    gemm::launch<true, false, true>(A, lda, B, ldb, Cf, ldc, M, N, K, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return hop::last_error();
 }
 
 }  // extern "C"

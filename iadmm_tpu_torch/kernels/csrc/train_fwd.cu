@@ -17,9 +17,9 @@
 //
 // Two compute dtypes (the entry point's f32 flag), as the TPU kernel's
 // compute_dtype: bf16 (Q, A0, W, U, W_h in bf16, every vector rounded to
-// bf16 before a matvec, tensor-core gate GEMM) or float32 (all of them
-// float32, nothing rounded, the gate GEMM on the CUDA cores in FFMA; the TPU
-// kernel runs these products at Precision.HIGHEST).
+// bf16 before a matvec, the wgmma gate GEMM of cell_gemm.cuh) or float32
+// (all of them float32, nothing rounded, the gate GEMM on the CUDA cores in
+// FFMA; the TPU kernel runs these products at Precision.HIGHEST).
 //
 // The streams are the carries.  They are step-major, slot k·B + b, rather
 // than the TPU kernel's b·(J+1) + k, so that a step's slab is contiguous and
@@ -124,7 +124,7 @@ void step(const admm::Problem& P, const admm::Weights& w,
 int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
               const void* Q, const void* A0, const void* p, const void* zl,
               const void* zu, const void* rhom, const void* rho_raw,
-              const void* alpha_raw, const void* W, const void* U,
+              const void* alpha_raw, const void* W, const void* Ut,
               const void* b, const void* Wh, const void* bh, void* hs,
               void* cs, void* xs, void* ys, void* zs, void* xvs,
               void* H_final, void* pr, void* dr, void* r, void* g,
@@ -142,7 +142,7 @@ int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
                         n,
                         m,
                         sigma};
-  const admm::Weights w{W, U, static_cast<const float*>(b), Wh,
+  const admm::Weights w{W, Ut, static_cast<const float*>(b), Wh,
                         static_cast<const float*>(bh), h};
   const admm::KktScratch ks{static_cast<float*>(mv_partial),
                             static_cast<float*>(rowdot)};
@@ -154,7 +154,7 @@ int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
         i == nsteps - 1 ? H_final : nullptr, pr, dr, r, g, cell_partial,
         static_cast<cudaStream_t>(stream));
   }
-  return static_cast<int>(cudaGetLastError());
+  return hop::last_error();
 }
 
 }  // namespace
@@ -162,16 +162,17 @@ int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
 extern "C" {
 
 // Step k of the chunk (schedule index t).  Q (B,n,n), A0 (B,m,n), W (2,4h),
-// U (h,4h), Wh (h,) bf16, or float32 when f32; p (B,n), zl, zu, rhom (B,m),
-// rho_raw/alpha_raw (K_total,), b (4h,), bh (1,) float32.  Streams as in the
-// header (hs in the dtype of Q); slot k is read and slot k+1 written.
-// H_final (B·S, h) float32 or null.  pr, dr (B, J) float32: column k
-// written.  r, g (B,n+m), mv_partial (B, ceil((n+m)/32), n), rowdot (B,m),
-// cell_partial (ceil(h/16), B·(n+m)) are scratch.
+// Wh (h,) bf16, and Ut, U (h,4h) re-laid for the bf16 cell GEMM
+// (cell_gemm.cuh); or all float32 when f32, Ut then U itself; p (B,n), zl,
+// zu, rhom (B,m), rho_raw/alpha_raw (K_total,), b (4h,), bh (1,) float32.
+// Streams as in the header (hs in the dtype of Q); slot k is read and slot
+// k+1 written.  H_final (B·S, h) float32 or null.  pr, dr (B, J) float32:
+// column k written.  r, g (B,n+m), mv_partial (B, ceil((n+m)/32), n),
+// rowdot (B,m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.
 int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
                          const void* p, const void* zl, const void* zu,
                          const void* rhom, const void* rho_raw,
-                         const void* alpha_raw, const void* W, const void* U,
+                         const void* alpha_raw, const void* W, const void* Ut,
                          const void* b, const void* Wh, const void* bh,
                          void* hs, void* cs, void* xs, void* ys, void* zs,
                          void* xvs, void* H_final, void* pr, void* dr,
@@ -179,7 +180,7 @@ int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
                          void* cell_partial, int B, int n, int m, int h,
                          int J, int f32, float sigma, void* stream) {
   return run_steps(t, k, 1, false, k, J, Q, A0, p, zl, zu, rhom, rho_raw,
-                   alpha_raw, W, U, b, Wh, bh, hs, cs, xs, ys, zs, xvs,
+                   alpha_raw, W, Ut, b, Wh, bh, hs, cs, xs, ys, zs, xvs,
                    H_final, pr, dr, r, g, mv_partial, rowdot, cell_partial, B,
                    n, m, h, f32, sigma, stream);
 }
@@ -198,7 +199,7 @@ int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
 int iadmm_train_fwd_seg(int t0, int col, int L, const void* Q, const void* A0,
                         const void* p, const void* zl, const void* zu,
                         const void* rhom, const void* rho_raw,
-                        const void* alpha_raw, const void* W, const void* U,
+                        const void* alpha_raw, const void* W, const void* Ut,
                         const void* b, const void* Wh, const void* bh,
                         void* hs, void* cs, void* xs, void* ys, void* zs,
                         void* xvs, void* H_final, void* pr, void* dr, void* r,
@@ -206,7 +207,7 @@ int iadmm_train_fwd_seg(int t0, int col, int L, const void* Q, const void* A0,
                         void* cell_partial, int B, int n, int m, int h, int J,
                         int f32, float sigma, void* stream) {
   return run_steps(t0, 0, J, true, col, L, Q, A0, p, zl, zu, rhom, rho_raw,
-                   alpha_raw, W, U, b, Wh, bh, hs, cs, xs, ys, zs, xvs,
+                   alpha_raw, W, Ut, b, Wh, bh, hs, cs, xs, ys, zs, xvs,
                    H_final, pr, dr, r, g, mv_partial, rowdot, cell_partial, B,
                    n, m, h, f32, sigma, stream);
 }

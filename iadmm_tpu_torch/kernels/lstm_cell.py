@@ -5,8 +5,9 @@ Replaces ``iadmm_tpu/kernels/lstm_cell.py::_cell_kernel``.  The kernel
 with the i/f/o/u columns of the same hidden units in one tile, so the
 activations, C' and H' are finished in the epilogue and the 4h gate
 pre-activations never reach device memory.  Both gate dtypes of the TPU
-kernel: ``'bfloat16'`` on the tensor cores (bound: the H·U GEMM at the
-bf16 tensor-core rate) and ``'float32'`` (the TPU kernel's
+kernel: ``'bfloat16'`` on the tensor cores (``wgmma`` fed by TMA,
+``csrc/hopper.cuh``, over U re-laid by :func:`relaid_u`; bound: the H·U
+GEMM at the bf16 tensor-core rate) and ``'float32'`` (the TPU kernel's
 ``Precision.HIGHEST``: float32 operands, nothing rounded, no TF32) on the
 CUDA cores in FFMA (bound: the same GEMM at the float32 rate); see the
 header of ``csrc/cell_gemm.cuh``.  Launches are counted per gate dtype:
@@ -52,6 +53,31 @@ def check_cell_weights(W, U, b, W_h, b_h, h: int) -> None:
                          f"expected {want}")
 
 
+def relaid_u(U: torch.Tensor, h: int) -> torch.Tensor:
+    """U (h, 4h) re-laid for the bf16 cell GEMM (``cell_gemm.cuh``): row
+    ``t·4·HB + g·HB + j`` holds column ``g·h + t·HB + j`` of U (gate g of
+    hidden unit t·HB + j, HB = ``_build.CELL_HB['bfloat16']``), so one
+    unit tile's i, f, o, u columns are 4·HB consecutive rows; units past h
+    are zero rows, and each row is zero-padded to a multiple of
+    ``_build.UT_ALIGN`` (the TMA's 16-byte row rule).  Shape
+    (cell_tiles(h)·4·HB, h rounded up), in U's dtype (the kernels take
+    bf16)."""
+    hb = _build.CELL_HB["bfloat16"]
+    nt = _build.cell_tiles(h, "bfloat16")
+    ld = -(-h // _build.UT_ALIGN) * _build.UT_ALIGN
+    out = torch.zeros((ld, 4, nt * hb), dtype=U.dtype, device=U.device)
+    out[:h, :, :h] = U.reshape(h, 4, h)
+    return (out.reshape(ld, 4, nt, hb).permute(2, 1, 3, 0)
+            .reshape(nt * 4 * hb, ld).contiguous())
+
+
+def cell_scratch(M: int, h: int, dev) -> torch.Tensor:
+    """The kernel's delta partials: one float32 row of M per
+    ``_build.DELTA_HB`` hidden units."""
+    return torch.empty((_build.delta_partials(h), M), dtype=torch.float32,
+                       device=dev)
+
+
 def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
     """The kernel on CUDA tensors; same contract as :func:`cell_plain`."""
     if gate_dtype_name not in _GATE_DTYPES:
@@ -77,21 +103,24 @@ def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
     Hc, Cc = _build.aligned(H), C.contiguous()
     Wc = W.to(wdt).contiguous()
     Uc = _build.aligned(U.to(wdt))
+    # the bf16 GEMM reads U re-laid (one pass over 5 MB at h = 800), the
+    # float32 one U itself
+    Ut = Uc if wdt == f32 else relaid_u(Uc, h)
     bb = b.to(f32).contiguous()
     Whc = W_h.reshape(-1).to(wdt).contiguous()
     bhb = b_h.reshape(-1).to(f32).contiguous()
     H_out = torch.empty_like(Hc)
     C_out = torch.empty_like(Cc)
-    n_tiles = (h + _build.CELL_HB - 1) // _build.CELL_HB
-    partial = torch.empty((n_tiles, M), dtype=f32, device=dev)
+    partial = cell_scratch(M, h, dev)
     delta = torch.empty((B, S), dtype=f32, device=dev)
     fn = _build.function("lstm_cell", "iadmm_cell_forward",
                          [_build.P] * 12 + [_build.I] * 5 + [_build.P])
     code = fn(x.data_ptr(), Hc.data_ptr(), Cc.data_ptr(), Wc.data_ptr(),
-              Uc.data_ptr(), bb.data_ptr(), Whc.data_ptr(), bhb.data_ptr(),
-              H_out.data_ptr(), C_out.data_ptr(), partial.data_ptr(),
-              delta.data_ptr(), M, h, int(H.dtype == bf), int(C.dtype == bf),
-              int(wdt == f32), _build.stream_ptr(dev))
+              Ut.data_ptr(), bb.data_ptr(), Whc.data_ptr(),
+              bhb.data_ptr(), H_out.data_ptr(), C_out.data_ptr(),
+              partial.data_ptr(), delta.data_ptr(), M, h,
+              int(H.dtype == bf), int(C.dtype == bf), int(wdt == f32),
+              _build.stream_ptr(dev))
     _build.check(code, "iadmm_cell_forward")
     if wdt == f32:
         fused_lstm_cell.launches_f32 += 1

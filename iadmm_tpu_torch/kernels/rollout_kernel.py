@@ -23,7 +23,8 @@ from ..solvers import cells
 from ..solvers.step import rho_vector
 from ..types import QPBatch
 from . import _build
-from .lstm_cell import CELL_KEYS, check_cell_weights
+from .lstm_cell import (CELL_KEYS, cell_scratch, check_cell_weights,
+                        relaid_u)
 
 
 def rollout_plain(params: Dict, data: QPBatch, *, hidden: int, K: int,
@@ -109,6 +110,7 @@ def _rollout_cuda(params: Dict, data: QPBatch, hidden: int, K: int,
     rho_raw, alpha_raw = vec(params["rho"]), vec(params["alpha"])
     W = vec(params["W"], bf)
     U = _build.aligned(params["U"].to(bf))
+    Ut = relaid_u(U, h)  # once for all K iterations
     b = vec(params["b"])
     Wh = vec(params["W_h"].reshape(-1), bf)
     bh = vec(params["b_h"].reshape(-1))
@@ -125,11 +127,11 @@ def _rollout_cuda(params: Dict, data: QPBatch, hidden: int, K: int,
     C = zeros(B * S, h)
     mv_partial = empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n)
     rowdot = empty(B, m)
-    cell_partial = empty((h + _build.CELL_HB - 1) // _build.CELL_HB, B * S)
+    cell_partial = cell_scratch(B * S, h, dev)
     fn = _build.function("rollout", "iadmm_rollout_step", _ROLLOUT_ARGS)
     stream = _build.stream_ptr(dev)
     fixed = [t.data_ptr() for t in (Q, A0, p, zl, zu, rhom, rho_raw,
-                                    alpha_raw, W, U, b, Wh, bh, xv, x, y, z,
+                                    alpha_raw, W, Ut, b, Wh, bh, xv, x, y, z,
                                     r, g)]
     for t in range(K):
         code = fn(t, *fixed, H_in.data_ptr(), H_out.data_ptr(),

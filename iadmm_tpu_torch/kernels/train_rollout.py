@@ -63,7 +63,8 @@ import torch
 from ..solvers.step import rho_vector
 from ..types import IterState, QPBatch
 from . import _build
-from .lstm_cell import CELL_KEYS, check_cell_weights
+from .lstm_cell import (CELL_KEYS, cell_scratch, check_cell_weights,
+                        relaid_u)
 
 _GRAD_KEYS = CELL_KEYS + ("rho", "alpha")
 _COMPUTE_DTYPES = ("bfloat16", "float32")
@@ -365,12 +366,14 @@ def train_bwd_seg_plain(weights, state, data, dfinal, dpr, ddr, *, t0: int,
 
 _FWD_ARGS = ([_build.I] * 2 + [_build.P] * 27 + [_build.I] * 6
              + [_build.F, _build.P])
-_BWD_ARGS = ([_build.I] * 2 + [_build.P] * 51 + [_build.I] * 6
+_BWD_ARGS = ([_build.I] * 2 + [_build.P] * 52 + [_build.I] * 6
              + [_build.F, _build.P])
 # the segment entry points: t0, col, L first; the backward also takes b_h
 _FWD_SEG_ARGS = [_build.I] + _FWD_ARGS
-_BWD_SEG_ARGS = ([_build.I] * 3 + [_build.P] * 52 + [_build.I] * 6
+_BWD_SEG_ARGS = ([_build.I] * 3 + [_build.P] * 53 + [_build.I] * 6
                  + [_build.F, _build.P])
+_GEMM_ARGS = ([_build.I] * 3 + [_build.P, _build.I] * 3 + [_build.I] * 3
+              + [_build.P])
 
 
 def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
@@ -413,15 +416,19 @@ def _check_float32(named, shapes):
                              f"contiguous float32 {tuple(shape)}")
 
 
-def _prep_cuda(weights, data, compute_dtype):
+def _prep_cuda(weights, data, compute_dtype, backward=False):
     """Kernel operands: matrices and cell weights in the compute dtype,
-    float32 vectors, all contiguous."""
+    float32 vectors, all contiguous.  The cell GEMM reads Ut, U re-laid
+    (:func:`lstm_cell.relaid_u`) for bf16 and U itself for float32; the
+    ``backward`` also reads U (dH = dpre·Uᵀ) and takes it before Ut."""
     cdt, f32 = _CDT[compute_dtype], torch.float32
     W, U, b, W_h, b_h, rho, alpha = weights
     Q, A0, p, zl, zu, rhom = data
     mats = [_build.aligned(Q.to(cdt)), _build.aligned(A0.to(cdt))]
     vecs = [t.to(f32).contiguous() for t in (p, zl, zu, rhom, rho, alpha)]
-    wts = [W.to(cdt).contiguous(), _build.aligned(U.to(cdt)),
+    Uc = _build.aligned(U.to(cdt))
+    Ut = Uc if cdt == f32 else relaid_u(Uc, Uc.shape[0])
+    wts = [W.to(cdt).contiguous(), *([Uc] if backward else []), Ut,
            b.to(f32).contiguous(), W_h.reshape(-1).to(cdt).contiguous(),
            b_h.reshape(-1).to(f32).contiguous()]
     return mats + vecs + wts
@@ -449,15 +456,17 @@ def _fwd_scratch(B, n, m, h, dev):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     return (empty(B, S), empty(B, S),
             empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
-            empty(B, m), empty((h + _build.CELL_HB - 1) // _build.CELL_HB,
-                               B * S))
+            empty(B, m), cell_scratch(B * S, h, dev))
 
 
 def _bwd_scratch(B, n, m, h, compute_dtype, dev):
-    """The scratch of the backward entry points, in their order."""
+    """The scratch of the backward entry points, in their order.  pxv is
+    also the segment backward's delta scratch (``cell_scratch``'s rows,
+    at least one per unit tile)."""
     S, M, h4 = n + m, B * (n + m), 4 * h
-    n_mt = (M + 127) // 128
-    n_ut = (h + _build.CELL_HB - 1) // _build.CELL_HB
+    n_mt = _build.cell_row_tiles(M)
+    n_ut = _build.cell_tiles(h, compute_dtype)
+    n_dp = _build.delta_partials(h)
 
     def empty(*shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -465,7 +474,7 @@ def _bwd_scratch(B, n, m, h, compute_dtype, dev):
             + [empty(B, m), empty(B, n), empty(1),       # drv dal scal
                empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
                empty(B, m), empty(M, h4, dt=_CDT[compute_dtype]),
-               empty(n_ut, M), empty(n_ut, M),           # pxv pg
+               empty(n_dp, M), empty(n_ut, M),           # pxv pg
                empty(n_mt, h4), empty(n_mt, h4), empty(n_mt, h4),
                empty(n_mt, h)])                          # pdb pdw0 pdw1 pdwh
 
@@ -535,17 +544,17 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
                              f"contiguous {dt} {shape}")
     dev = xs.device
     f32 = torch.float32
-    ops = _prep_cuda(weights, data, compute_dtype)
+    ops = _prep_cuda(weights, data, compute_dtype, backward=True)
     carries = tuple(t.to(f32).contiguous().clone() for t in dfinal)
     dpr = dpr.to(f32).contiguous()
     ddr = ddr.to(f32).contiguous()
     grads = _zero_grads(h, J, f32, dev)
     fn = _build.function("train_bwd", "iadmm_train_bwd_step", _BWD_ARGS)
     stream = _build.stream_ptr(dev)
-    # ops[:12]: Q A0 p zl zu rhom rho alpha W U b Wh (the backward does
+    # ops[:13]: Q A0 p zl zu rhom rho alpha W U Ut b Wh (the backward does
     # not read b_h)
     ptrs = [t.data_ptr() for t in (
-        *ops[:12], *streams, dpr, ddr, *carries, *grads,
+        *ops[:13], *streams, dpr, ddr, *carries, *grads,
         *_bwd_scratch(B, n, m, h, compute_dtype, dev))]
     f32_flag = int(compute_dtype == "float32")
     for k in reversed(range(J)):
@@ -628,7 +637,7 @@ def train_bwd_seg_cuda(weights, state, data, dfinal, dpr, ddr, *, t0: int,
             raise ValueError(f"d{k}: shape {tuple(d.shape)}, expected "
                              f"{tuple(t.shape)}")
     carries = tuple(t.to(f32).contiguous().clone() for t in dfinal)
-    ops = _prep_cuda(weights, data, compute_dtype)
+    ops = _prep_cuda(weights, data, compute_dtype, backward=True)
     bufs = _carries(state, compute_dtype, J + 1)
     fn = _build.function("train_bwd", "iadmm_train_bwd_seg", _BWD_SEG_ARGS)
     code = fn(t0, col, L, *(t.data_ptr() for t in (
@@ -643,6 +652,41 @@ def train_bwd_seg_cuda(weights, state, data, dfinal, dpr, ddr, *, t0: int,
 
 train_bwd_seg_cuda.launches = 0      # segments launched, bf16 compute
 train_bwd_seg_cuda.launches_f32 = 0  # segments launched, float32 compute
+
+
+def bf16_gemm(A, B, C, *, a_col: bool, b_col: bool, accumulate: bool):
+    """The training backward's bf16 GEMM core alone (``csrc/gemm_bf16.cuh``
+    through ``iadmm_gemm_bf16``), to time and check it apart from the
+    reverse step: C (M, N) float32 = op(A)·op(B), or += with
+    ``accumulate``, where op(A) = Aᵀ with ``a_col`` and op(B) = Bᵀ with
+    ``b_col``; A and B bf16, contiguous.  The kernel takes the backward's
+    two products: dH = dpre·Uᵀ (a_col=False, b_col=True, accumulate=False)
+    and dU += H_kᵀ·dpre (True, False, True).  On CPU tensors: float32
+    products of the same operands.  Returns C."""
+    opA = A.t() if a_col else A
+    opB = B.t() if b_col else B
+    (M, K), N = opA.shape, opB.shape[1]
+    if opB.shape[0] != K or tuple(C.shape) != (M, N):
+        raise ValueError(f"bf16_gemm: {tuple(opA.shape)} x "
+                         f"{tuple(opB.shape)} into {tuple(C.shape)}")
+    if not C.is_cuda:
+        prod = opA.float() @ opB.float()
+        return C.add_(prod) if accumulate else C.copy_(prod)
+    flags = (int(a_col), int(b_col), int(accumulate))
+    if flags not in ((0, 1, 0), (1, 0, 1)):
+        raise ValueError(f"bf16_gemm: the kernel takes the dH and dU "
+                         f"products only, not (a_col, b_col, accumulate) = "
+                         f"{flags}")
+    for k, t, dt in (("A", A, torch.bfloat16), ("B", B, torch.bfloat16),
+                     ("C", C, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != C.device:
+            raise ValueError(f"bf16_gemm: {k} must be a contiguous {dt} on "
+                             f"{C.device}")
+    fn = _build.function("train_bwd", "iadmm_gemm_bf16", _GEMM_ARGS)
+    code = fn(*flags, A.data_ptr(), A.shape[1], B.data_ptr(), B.shape[1],
+              C.data_ptr(), N, M, N, K, _build.stream_ptr(C.device))
+    _build.check(code, "iadmm_gemm_bf16")
+    return C
 
 
 def _param_grads(weights, grads, t0):

@@ -1,0 +1,112 @@
+"""Host-side pieces of the cell GEMM's tiling: the tile constants read from
+``csrc/cell_gemm.cuh``, the scratch the wrappers allocate for each precision
+profile, and the re-laid U (``lstm_cell.relaid_u``) that the bf16 kernels
+read, held to the plain cell in float64."""
+
+import numpy as np
+import pytest
+import torch
+
+from iadmm_tpu_torch.kernels import _build
+from iadmm_tpu_torch.kernels import lstm_cell as lc
+from iadmm_tpu_torch.kernels import train_rollout as ttr
+
+PROFILES = ("bfloat16", "float32")
+WIDTHS = (16, 20, 24, 32, 44, 800, 808)
+
+
+def test_tile_constants():
+    """The tile constants the scratch and Ut are sized from: the bf16 tile
+    is the wgmma core's 128 x 128 (4 gates of 32 units: h = 800 is 25
+    tiles), the float32 tile 16 units (50 tiles at h = 800), and delta's
+    partials are one per 16 units on both profiles."""
+    assert _build.CELL_BM == 128
+    assert _build.CELL_HB == {"bfloat16": 32, "float32": 16}
+    assert 4 * _build.CELL_HB["bfloat16"] == _build.header_int("hopper.cuh",
+                                                               "BN")
+    assert _build.DELTA_HB == 16 and _build.UT_ALIGN == 8
+    assert _build.cell_tiles(800, "bfloat16") == 25
+    assert _build.cell_tiles(800, "float32") == 50
+    assert _build.delta_partials(800) == 50
+
+
+@pytest.mark.parametrize("h", (20, 800, 808))
+def test_cell_scratch(h):
+    """The delta partials: one float32 row of M per 16 hidden units."""
+    M = 2 * 1037
+    part = lc.cell_scratch(M, h, "cpu")
+    assert part.shape == (-(-h // 16), M) and part.dtype == torch.float32
+
+
+@pytest.mark.parametrize("cdt", PROFILES)
+@pytest.mark.parametrize("h", (20, 800, 808))
+def test_train_scratch_per_profile(cdt, h):
+    """The training pair's scratch, in the entry points' order: the
+    forward's delta partials (one row per 16 units), the backward's row
+    partials (pg: one row per unit tile; pxv, also the segment backward's
+    delta scratch: one per 16 units), column partials (pdb, pdw0, pdw1,
+    pdwh: one row per 128-token tile) and dpre in the compute dtype."""
+    B, n, m = 2, 300, 237
+    S, M = n + m, B * (n + m)
+    n_ut = -(-h // {"bfloat16": 32, "float32": 16}[cdt])
+    n_dp = -(-h // 16)
+    n_mt = -(-M // 128)
+    fwd = ttr._fwd_scratch(B, n, m, h, "cpu")
+    assert [tuple(t.shape) for t in fwd] == [
+        (B, S), (B, S), (B, -(-S // 32), n), (B, m), (n_dp, M)]
+    bwd = ttr._bwd_scratch(B, n, m, h, cdt, "cpu")
+    assert [tuple(t.shape) for t in bwd] == (
+        [(B, S)] * 6 + [(B, m), (B, n), (1,), (B, -(-S // 32), n), (B, m),
+                        (M, 4 * h), (n_dp, M), (n_ut, M), (n_mt, 4 * h),
+                        (n_mt, 4 * h), (n_mt, 4 * h), (n_mt, h)])
+    assert bwd[11].dtype == ttr._CDT[cdt]
+
+
+def _column_map(h):
+    """Row of Ut holding column c = g·h + u of U."""
+    hb = _build.CELL_HB["bfloat16"]
+    g, u = np.divmod(np.arange(4 * h), h)
+    return (u // hb) * 4 * hb + g * hb + u % hb
+
+
+@pytest.mark.parametrize("h", WIDTHS)
+def test_relaid_u_inverts(h):
+    """Every column of U lands on its own row of Ut (the column map is one
+    to one), the padding is zero, and reading the map back gives U."""
+    rng = np.random.default_rng(h)
+    U = torch.from_numpy(rng.standard_normal((h, 4 * h)))
+    Ut = lc.relaid_u(U, h)
+    nt = _build.cell_tiles(h, "bfloat16")
+    ld = -(-h // 8) * 8
+    assert Ut.shape == (nt * 128, ld) and Ut.dtype == U.dtype
+    rows = _column_map(h)
+    assert len(set(rows.tolist())) == 4 * h
+    torch.testing.assert_close(Ut[rows, :h].T, U, rtol=0, atol=0)
+    pad = np.ones(Ut.shape[0], bool)
+    pad[rows] = False
+    assert not Ut[pad].any() and not Ut[:, h:].any()
+
+
+@pytest.mark.parametrize("h,S", [(20, 37), (44, 133), (64, 40)])
+def test_cell_over_relaid_u_matches_plain(h, S):
+    """A plain cell whose gate GEMM reads Ut through the column map equals
+    ``cell_plain`` in float64."""
+    rng = np.random.default_rng(7)
+    f64 = torch.float64
+
+    def rand(*shape, s=1.0):
+        return torch.from_numpy(s * rng.standard_normal(shape)).to(f64)
+    W, U, b = rand(2, 4 * h, s=0.1), rand(h, 4 * h, s=0.3), rand(4 * h)
+    W_h, b_h = rand(h, 1, s=0.1), rand(1)
+    x, H, C = rand(2, S, 2), torch.tanh(rand(2, S, h)), rand(2, S, h)
+    Ut = lc.relaid_u(U, h)
+    gates = (x @ W + (H @ Ut[:, :h].T)[..., _column_map(h)] + b)
+    i, f, o = (torch.sigmoid(gates[..., k * h:(k + 1) * h])
+               for k in range(3))
+    u = torch.tanh(gates[..., 3 * h:])
+    C_new = i * u + f * C
+    H_new = o * torch.tanh(C_new)
+    delta = (H_new @ W_h)[..., 0] + b_h
+    ref = lc.cell_plain(W, U, b, W_h, b_h, x, H, C, "float32")
+    for a, r in zip((delta, H_new, C_new), ref):
+        torch.testing.assert_close(a, r, rtol=1e-12, atol=1e-12)

@@ -56,8 +56,14 @@ def _params(seed, h, K=6):
 
 @pytest.mark.parametrize("h,S,hc", [(16, 40, torch.bfloat16),
                                     (20, 37, torch.float32),
-                                    (64, 300, torch.bfloat16)])
+                                    (64, 300, torch.bfloat16),
+                                    (44, 133, torch.bfloat16),
+                                    (808, 37, torch.bfloat16)])
 def test_cell_matches_plain(dev, h, S, hc):
+    """bf16 gates, ragged shapes included: B·S not a multiple of the
+    core's 128 rows, h not a multiple of its 32 units (44 and 20 not of 8
+    either: H loaded by the core's producer threads); two calls bitwise
+    equal."""
     p, g = _params(h, h)
     keys = [p[k].to(dev) for k in tcell.CELL_KEYS]
     x = torch.randn((2, S, 2), generator=g).to(dev)
@@ -71,6 +77,8 @@ def test_cell_matches_plain(dev, h, S, hc):
         assert a.dtype == b.dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
                                    atol=2e-2)
+    again = tcell.cell_forward(*keys, x, H, C, "bfloat16")
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.parametrize("h,S,hc", [(16, 40, torch.float32),
@@ -267,17 +275,20 @@ def _leaf_gap(a, b):
         float(b.abs().max()), 1e-6)
 
 
-@pytest.mark.parametrize("t0", [0, 2])
-def test_train_kernels_match_plain(dev, t0):
+@pytest.mark.parametrize("t0,h", [(0, 24), (2, 24), (0, 36), (0, 40)])
+def test_train_kernels_match_plain(dev, t0, h):
     """Forward: losses and final state to 2e-2.  Backward on the plain
     forward's streams: every gradient leaf to 1e-3 of its max.  End to end:
     every leaf to 2e-2 of its max, or, for a leaf that is a cancelling sum
     (b_h here: per-step terms of about 12 summing to about 0.3), to within
     2x the gap the plain backward shows when fed the kernel's streams.  The
-    backward twice: bitwise equal (fixed-order sums)."""
+    backward twice: bitwise equal (fixed-order sums).  B·S = 84 rows, less
+    than one 128-row tile; h = 36 and 40 are ragged for the bf16 cores (not
+    multiples of their 32 units; 36 not of 8 either: H and the dU operands
+    go through the core's producer threads)."""
     from iadmm_tpu_torch.kernels import train_rollout as ttr
     J = 6
-    weights, st, dd, g = _train_inputs(dev)
+    weights, st, dd, g = _train_inputs(dev, h=h)
     kw = dict(t0=t0, J=J, sigma=1e-3, compute_dtype="bfloat16")
     before = ttr.train_fwd_cuda.launches
     pr, dr, final, streams = ttr.train_fwd_cuda(weights, st, dd, **kw)
@@ -309,6 +320,35 @@ def test_train_kernels_match_plain(dev, t0):
         assert gap <= 2e-2 or gap <= 2 * _leaf_gap(o, b), (k, gap)
     for k, s, b in zip("x y z xv H C".split(), sst, rst):
         assert _leaf_gap(s, b) <= 1e-3, f"d{k}"
+
+
+@pytest.mark.parametrize("M,h", [(200, 24), (200, 20), (1037, 808),
+                                 (4000, 800)])
+def test_bf16_gemm_matches_plain(no_tf32, M, h):
+    """The training backward's bf16 GEMM core alone: dH = dpre·Uᵀ and dU +=
+    H_kᵀ·dpre against the float32 product of the same bf16 operands, to
+    1e-4 of max|ref| (exact products summed in another order); ragged M and
+    h, and h = 20 whose H rows the TMA cannot address; two calls bitwise
+    equal."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    g = torch.Generator().manual_seed(M + h)
+    bf = torch.bfloat16
+    dpre = torch.randn((M, 4 * h), generator=g).to(no_tf32, bf)
+    U = torch.randn((h, 4 * h), generator=g).to(no_tf32, bf)
+    H = torch.randn((M, h), generator=g).to(no_tf32, bf)
+    dU0 = torch.randn((h, 4 * h), generator=g).to(no_tf32)
+    dH = torch.empty((M, h), device=no_tf32)
+    ttr.bf16_gemm(dpre, U, dH, a_col=False, b_col=True, accumulate=False)
+    ref = dpre.float() @ U.float().T
+    torch.testing.assert_close(dH, ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    dU, again = dU0.clone(), dU0.clone()
+    for out in (dU, again):
+        ttr.bf16_gemm(H, dpre, out, a_col=True, b_col=False, accumulate=True)
+    ref = dU0 + H.float().T @ dpre.float()
+    torch.testing.assert_close(dU, ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(dU, again)
 
 
 def test_float32_train_kernels_match_plain(no_tf32):
