@@ -34,8 +34,10 @@ Stage II's condensed-system solvers:
       the plain pair (the largest under three permutations of the hidden
       units); the backward twice, bitwise equal; timed at J=100; then the
       pair at J=6 on ragged shapes (B·S = 1174, h = 212 and 808), and the
-      backward's bf16 GEMM cores alone (dH, dU at B=2 and 16) against the
-      float32 product of their operands, timed beside torch.matmul;
+      backward's GEMM cores alone (dH, dU at B=2 and 16): the bf16 core
+      against the float32 product of its operands, the float32 FFMA core
+      against the float64 product at F32_GEMM_TOL, each timed (TFLOP/s)
+      beside torch.matmul in its dtype (TF32 off);
   (g) training: ``harness.train`` with train_backend='fused' and the fast
       profile, 2 epochs on a generated QP_1000_500_500 dataset (16
       instances, B=2, J = outer_T = 100), then ``make_solver`` serves one
@@ -138,13 +140,20 @@ output (ptxas reports, ``report.json``, the CLI's output) goes to
 to ``results/chip_smoke*/`` and are removed at the end.
 
 Two checkouts can be held bitwise equal (a kernel change that must not
-move a result): the bf16 cell at six shapes and both state dtypes, a J=6
-bf16 training forward at B=2, and (d)'s first request with its LU and
-pre-polish references, in one file per checkout (copy this script into
-an older checkout first):
+move a result): the bf16-gate cell at six shapes and the float32-gate
+cell at five (the flagship shape with both state dtypes, ragged ones), a
+J=6 bf16 training forward at B=2, the float32 stream pair and segment
+pair (segments of 2) at J=6 with every gradient and start-state
+cotangent, (d)'s first request with its LU and pre-polish references and
+a float32 ``make_solver`` solve, in one file per checkout (copy this
+script into an older checkout first):
 
     python3 chip_smoke.py --snapshot a.pt
     python3 chip_smoke.py --compare a.pt b.pt
+
+and their float32 rows timed on one card, the checkouts in turns:
+
+    python3 chip_smoke.py --time-f32 a.json
 """
 
 from __future__ import annotations
@@ -200,6 +209,7 @@ FLUSH_BYTES = 256 << 20   # read between cold launches: 5x the 50 MB L2
 # order (of max|ref|)
 F32_CELL_TOL = 1e-5
 F32_LEAF_TOL = 1e-4
+F32_GEMM_TOL = 1e-5   # the float32 GEMM core alone vs the float64 product
 # (m): 16 instances; val and test fractions raised to 2 and 4 instances, as
 # scripts/run_workload.py raises them for small datasets (the config's 0.01
 # would leave no validation instance)
@@ -224,6 +234,17 @@ def cuda_ms(fn, reps=3, warmup=1):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def warm_ms(fn, long_s=1.0):
+    """(ms, timed calls) of a plain version: one warm-up call, then two
+    timed calls, or one where the warm-up took longer than ``long_s``."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = 1 if time.perf_counter() - t0 > long_s else 2
+    return cuda_ms(fn, reps=reps, warmup=0), reps
 
 
 def queued_ms(fn, reps=50, sleep_ms=50.0, flush=None):
@@ -989,12 +1010,11 @@ def phase_train_kernels(params, data, report, cdt="bfloat16"):
                      reps=2)
     bwd_ms = cuda_ms(lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d,
                                                **kw), reps=2)
-    fwd_plain_ms = cuda_ms(lambda: tr.train_fwd_plain(weights, state, dd,
-                                                      **kw), reps=1, warmup=0)
+    fwd_plain_ms, fwd_plain_reps = warm_ms(
+        lambda: tr.train_fwd_plain(weights, state, dd, **kw))
     pstr = tr.train_fwd_plain(weights, state, dd, **kw)[3]
-    bwd_plain_ms = cuda_ms(lambda: tr.train_bwd_plain(weights, dd, pstr, zero,
-                                                      d, d, **kw),
-                           reps=1, warmup=0)
+    bwd_plain_ms, bwd_plain_reps = warm_ms(
+        lambda: tr.train_bwd_plain(weights, dd, pstr, zero, d, d, **kw))
     del pstr
     breakdown, _ = device_time_by_kernel(
         lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw))
@@ -1041,7 +1061,10 @@ def phase_train_kernels(params, data, report, cdt="bfloat16"):
                    zip(J100_LEAVES, gap_p)),
                bitwise_repeat=True,
                fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
-               bwd_plain_ms=bwd_plain_ms, fwd_bound_ms=fb, fwd_bound_by=fby,
+               bwd_plain_ms=bwd_plain_ms,
+               plain_timing=(f"1 warm-up, then {fwd_plain_reps} (fwd) / "
+                             f"{bwd_plain_reps} (bwd) timed calls"),
+               fwd_bound_ms=fb, fwd_bound_by=fby,
                bwd_bound_ms=bb, bwd_bound_by=bby,
                fwd_library_ms=J * lib_fwd, bwd_library_ms=J * lib_step,
                library_note=(f"J x torch.matmul in {cdt} (TF32 off) of one "
@@ -1123,47 +1146,70 @@ def phase_train_ragged(report):
 
 
 def phase_gemm_cores(report):
-    """(f): the bf16 GEMM cores alone at the training backward's flagship
-    shapes (B·S = 4,000 and 32,000 rows, h = 800): dH = dpre·Uᵀ and dU +=
-    H_kᵀ·dpre through ``train_rollout.bf16_gemm`` against the float32
-    product of the same bf16 operands (1e-4 of max|ref|: the same exact
-    products summed in another order), each core's achieved TFLOP/s beside
-    torch.matmul of the same operands (bf16 out)."""
+    """(f): the backward's GEMM cores alone at its flagship shapes (B·S =
+    4,000 and 32,000 rows, h = 800), dH = dpre·Uᵀ and dU += H_kᵀ·dpre,
+    each core's achieved TFLOP/s beside torch.matmul of the same operands:
+    the bf16 core (``train_rollout.bf16_gemm``) against the float32 product
+    of the same bf16 operands (1e-4 of max|ref|: the same exact products
+    summed in another order); the float32 FFMA core
+    (``train_rollout.f32_gemm``, dH from the transposed copies dpreᵀ and Uᵀ
+    the float32 backward keeps) against the float64 product of the same
+    operands (F32_GEMM_TOL of max|ref|: float32 sums over K = 4h or B·S),
+    beside torch.matmul at float32 with TF32 off."""
     import torch
     from iadmm_tpu_torch.kernels import train_rollout as tr
     h, S = HIDDEN, N_VAR + N_INEQ + N_EQ
     rows = {}
     for B in (TRAIN_BATCH, SEG_BATCH):
         M = B * S
-        g = torch.Generator().manual_seed(B)
-        dpre = torch.randn((M, 4 * h), generator=g).to(DEV, torch.bfloat16)
-        U = (0.05 * torch.randn((h, 4 * h), generator=g)).to(
-            DEV, torch.bfloat16)
-        H = torch.tanh(torch.randn((M, h), generator=g)).to(
-            DEV, torch.bfloat16)
-        dH = torch.empty((M, h), device=DEV)
-        dU = torch.zeros((h, 4 * h), device=DEV)
-        tr.bf16_gemm(dpre, U, dH, a_col=False, b_col=True, accumulate=False)
-        tr.bf16_gemm(H, dpre, dU, a_col=True, b_col=False, accumulate=True)
-        eH = compare("gemm dH", dH, dpre.float() @ U.float().T,
-                     1e-4 * float(dH.abs().max()), 0.0)
-        eU = compare("gemm dU", dU, H.float().T @ dpre.float(),
-                     1e-4 * float(dU.abs().max()), 0.0)
         flop = 2.0 * M * h * 4 * h
-        ms = dict(
-            dH=cuda_ms(lambda: tr.bf16_gemm(dpre, U, dH, a_col=False,
-                                            b_col=True, accumulate=False),
-                       reps=10),
-            dU=cuda_ms(lambda: tr.bf16_gemm(H, dpre, dU, a_col=True,
-                                            b_col=False, accumulate=True),
-                       reps=10),
-            dH_matmul=cuda_ms(lambda: torch.matmul(dpre, U.T), reps=10),
-            dU_matmul=cuda_ms(lambda: torch.matmul(H.T, dpre), reps=10))
-        rows[f"B{B}"] = dict(
-            shape=dict(M=M, h=h, K_dH=4 * h, K_dU=M),
-            max_rel_err=dict(dH=eH[1], dU=eU[1]), ms=ms,
-            tflops={k: flop / v / 1e9 for k, v in ms.items()})
-        del dpre, U, H, dH, dU
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator().manual_seed(B)
+            dpre = torch.randn((M, 4 * h), generator=g).to(DEV, dt)
+            U = (0.05 * torch.randn((h, 4 * h), generator=g)).to(DEV, dt)
+            H = torch.tanh(torch.randn((M, h), generator=g)).to(DEV, dt)
+            dH = torch.empty((M, h), device=DEV)
+            dU = torch.zeros((h, 4 * h), device=DEV)
+            if dt == torch.bfloat16:
+                tol, ref_dt, name = 1e-4, torch.float32, f"B{B}"
+
+                def fdH():
+                    tr.bf16_gemm(dpre, U, dH, a_col=False, b_col=True,
+                                 accumulate=False)
+            else:
+                tol, ref_dt, name = F32_GEMM_TOL, torch.float64, f"B{B}_f32"
+                dpreT, UT = dpre.T.contiguous(), U.T.contiguous()
+
+                def fdH():
+                    tr.f32_gemm(dpreT, UT, dH, a_col=True, b_col=False,
+                                accumulate=False)
+
+            def fdU():
+                (tr.bf16_gemm if dt == torch.bfloat16 else tr.f32_gemm)(
+                    H, dpre, dU, a_col=True, b_col=False, accumulate=True)
+            fdH()
+            fdU()
+            refH = dpre.to(ref_dt) @ U.to(ref_dt).T
+            eH = compare(f"gemm dH {dt}", dH, refH,
+                         tol * float(refH.abs().max()), 0.0)
+            del refH
+            refU = H.to(ref_dt).T @ dpre.to(ref_dt)
+            eU = compare(f"gemm dU {dt}", dU, refU,
+                         tol * float(refU.abs().max()), 0.0)
+            del refU
+            ms = dict(
+                dH=cuda_ms(fdH, reps=10), dU=cuda_ms(fdU, reps=10),
+                dH_matmul=cuda_ms(lambda: torch.matmul(dpre, U.T), reps=10),
+                dU_matmul=cuda_ms(lambda: torch.matmul(H.T, dpre), reps=10))
+            rows[name] = dict(
+                shape=dict(M=M, h=h, K_dH=4 * h, K_dU=M), dtype=str(dt),
+                tol=f"{tol:g}·max|ref|", max_rel_err=dict(dH=eH[1],
+                                                          dU=eU[1]),
+                ms=ms, tflops={k: flop / v / 1e9 for k, v in ms.items()})
+            del dpre, U, H, dH, dU
+            if dt == torch.float32:
+                del dpreT, UT
+            torch.cuda.empty_cache()
     say("f gemm cores", **rows)
     report["gemm_cores"] = rows
 
@@ -1996,13 +2042,14 @@ def phase_seg_kernels(params, data, data16, report, cdt="bfloat16"):
         out["bwd_ms"] = cuda_ms(lambda: seg_backward(w, ck, dat, z0, dJ,
                                                      SEG_LEN, cdt), reps=reps)
         del ck
-        out["fwd_plain_ms"] = cuda_ms(
-            lambda: seg_forward(w, st, dat, J, SEG_LEN, cdt, plain=True),
-            reps=1, warmup=0)
+        out["fwd_plain_ms"], fr_ = warm_ms(
+            lambda: seg_forward(w, st, dat, J, SEG_LEN, cdt, plain=True))
         *_, pck = seg_forward(w, st, dat, J, SEG_LEN, cdt, plain=True)
-        out["bwd_plain_ms"] = cuda_ms(
+        out["bwd_plain_ms"], br_ = warm_ms(
             lambda: seg_backward(w, pck, dat, z0, dJ, SEG_LEN, cdt,
-                                 plain=True), reps=1, warmup=0)
+                                 plain=True))
+        out["plain_timing"] = (f"1 warm-up, then {fr_} (fwd) / {br_} (bwd) "
+                               f"timed calls")
         del pck
         skw = dict(t0=0, J=J, sigma=SIGMA, compute_dtype=cdt)
         out["stream_fwd_ms"] = cuda_ms(lambda: tr.train_fwd_cuda(
@@ -2628,11 +2675,41 @@ def snapshot(path):
         keys, x, H, C = cell_case(params, B, S, h, hc, g)
         out[f"cell B={B} S={S} h={h} {hc}"] = lc.cell_forward(
             *keys, x, H, C, "bfloat16")
+    # the float32-gate cell: the flagship shape with both state dtypes,
+    # ragged shapes
+    for B, S, h, hc in ((SERVE_BATCH, N_VAR + N_INEQ + N_EQ, HIDDEN, f32),
+                        (SERVE_BATCH, N_VAR + N_INEQ + N_EQ, HIDDEN, bf),
+                        (2, RAGGED_S, RAGGED_H, f32), (2, 37, 20, f32),
+                        (2, 133, 44, bf)):
+        keys, x, H, C = cell_case(params, B, S, h, hc, g)
+        out[f"cell f32 B={B} S={S} h={h} {hc}"] = lc.cell_forward(
+            *keys, x, H, C, "float32")
     scaled, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
     w, st, dd = train_inputs(params, scaled)
     pr, dr, final, _ = ttr.train_fwd_cuda(w, st, dd, t0=0, J=K_CHECK,
                                           sigma=SIGMA)
     out["train_fwd J=6"] = (pr, dr, *final)
+    # the float32 training pair at J=6: losses, final state, every gradient
+    # and the start-state cotangents; then the segment pair in segments of 2
+    f32kw = dict(sigma=SIGMA, compute_dtype="float32")
+    pr, dr, final, streams = ttr.train_fwd_cuda(w, st, dd, t0=0, J=K_CHECK,
+                                                **f32kw)
+    gd = torch.Generator().manual_seed(12)
+    dpr = torch.rand(pr.shape, generator=gd).to(DEV)
+    ddr = torch.rand(dr.shape, generator=gd).to(DEV)
+    dfin = tuple((0.1 * torch.randn(f.shape, generator=gd)).to(DEV)
+                 for f in final)
+    grads, dst = ttr.train_bwd_cuda(w, dd, streams, dfin, dpr, ddr, t0=0,
+                                    J=K_CHECK, **f32kw)
+    del streams
+    out["train_fwd f32 J=6"] = (pr, dr, *final)
+    out["train_bwd f32 J=6"] = (*grads, *dst)
+    pr, dr, final, ckpts = seg_forward(w, st, dd, K_CHECK, SEG_LEN,
+                                       "float32")
+    acc = seg_backward(w, ckpts, dd, dfin, dpr, SEG_LEN, "float32")
+    del ckpts
+    out["train_fwd_seg f32 J=6"] = (pr, dr, *final)
+    out["train_bwd_seg f32 J=6"] = (*acc[0], *acc[1])
     kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
               feas_rest_num=POLISH_STEPS, sigma=SIGMA, use_pallas=True,
               gate_dtype="bfloat16", matvec_mode="bf16",
@@ -2644,7 +2721,80 @@ def snapshot(path):
         r = make_solver(params, **k)(req)
         out[name] = tuple(getattr(r, f) for f in ("x", "y", "z",
                                                   "primal_res"))
+    r = make_solver(params, hidden_dim=HIDDEN, num_iters=K_ITERS,
+                    feas_rest_num=POLISH_STEPS, sigma=SIGMA,
+                    use_pallas=True)(req)
+    out["serve float32"] = tuple(getattr(r, f) for f in ("x", "y", "z",
+                                                         "primal_res"))
     torch.save({k: [t.cpu() for t in v] for k, v in out.items()}, path)
+    return 0
+
+
+def time_f32(path):
+    """Time this checkout's float32 rows (the cell at B=8 with both state
+    dtypes, the stream pair at B=2 and the segment pair at B=16 over J=100,
+    a fused and a step chunk update, three float32 solves) and write them
+    to ``path`` as JSON: run in two checkouts, in turns, to compare them on
+    one card."""
+    import torch
+    from iadmm_tpu_torch.api import make_solver
+    from iadmm_tpu_torch.kernels import _build
+    from iadmm_tpu_torch.kernels import lstm_cell as lc
+    from iadmm_tpu_torch.kernels import train_rollout as tr
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    _build.build_all()
+    out = dict(card=torch.cuda.get_device_name(0))
+    params = lstm_init(torch.Generator().manual_seed(0), 2, HIDDEN, K_ITERS,
+                       device="cuda")
+    g = torch.Generator().manual_seed(13)
+    S0 = N_VAR + N_INEQ + N_EQ
+    for hc in (torch.float32, torch.bfloat16):
+        keys, x, H, C = cell_case(params, SERVE_BATCH, S0, HIDDEN, hc, g)
+        out[f"cell_ms_{str(hc)[6:]}_state"] = cuda_ms(
+            lambda: lc.cell_forward(*keys, x, H, C, "float32"), reps=20)
+        del keys, x, H, C
+    scaled, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
+    w, st, dd = train_inputs(params, scaled)
+    kw = dict(t0=0, J=K_ITERS, sigma=SIGMA, compute_dtype="float32")
+    out["train_fwd_ms"] = cuda_ms(lambda: tr.train_fwd_cuda(w, st, dd, **kw),
+                                  reps=3)
+    pr, _, fin, streams = tr.train_fwd_cuda(w, st, dd, **kw)
+    z0 = tuple(torch.zeros_like(f) for f in fin)
+    dJ = torch.full(pr.shape, 1.0 / (pr.shape[0] * K_ITERS), device=DEV)
+    out["train_bwd_ms"] = cuda_ms(lambda: tr.train_bwd_cuda(
+        w, dd, streams, z0, dJ, dJ, **kw), reps=3)
+    del streams
+    torch.cuda.empty_cache()
+    w16, st16, dd16 = train_inputs(params, scale_batch(
+        qp_batch(SEG_BATCH, seed=5))[0])
+    out["seg_fwd_B16_ms"] = cuda_ms(lambda: seg_forward(
+        w16, st16, dd16, K_ITERS, SEG_LEN, "float32"), reps=2)
+    pr, _, fin, ck = seg_forward(w16, st16, dd16, K_ITERS, SEG_LEN,
+                                 "float32")
+    z0 = tuple(torch.zeros_like(f) for f in fin)
+    dJ = torch.full(pr.shape, 1.0 / (pr.shape[0] * K_ITERS), device=DEV)
+    out["seg_bwd_B16_ms"] = cuda_ms(lambda: seg_backward(
+        w16, ck, dd16, z0, dJ, SEG_LEN, "float32"), reps=2)
+    del ck, w16, st16, dd16
+    torch.cuda.empty_cache()
+    report = {}
+    phase_step_vs_fused(params, scaled, report, "float32")
+    out["chunk_update_ms"] = report["step_vs_fused_f32"]["chunk_update_ms"]
+    solve = make_solver(params, hidden_dim=HIDDEN, num_iters=K_ITERS,
+                        feas_rest_num=POLISH_STEPS, sigma=SIGMA,
+                        use_pallas=True)
+    out["serve_solve_ms"] = []
+    for r in range(3):
+        req = qp_batch(SERVE_BATCH, seed=100 + r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(req)
+        torch.cuda.synchronize()
+        out["serve_solve_ms"].append((time.perf_counter() - t0) * 1e3)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out), flush=True)
     return 0
 
 
@@ -2686,11 +2836,12 @@ def main(argv=()) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv:
-        if argv[0] != "--snapshot" or len(argv) != 2:
-            print("usage: chip_smoke.py [--snapshot OUT | --compare A B]",
-                  file=sys.stderr)
+        modes = {"--snapshot": snapshot, "--time-f32": time_f32}
+        if argv[0] not in modes or len(argv) != 2:
+            print("usage: chip_smoke.py [--snapshot OUT | --compare A B | "
+                  "--time-f32 OUT]", file=sys.stderr)
             return 2
-        return snapshot(argv[1])
+        return modes[argv[0]](argv[1])
     say("setup", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), card=card,
         tf32="matmul.allow_tf32=False, cudnn.allow_tf32=False")

@@ -55,9 +55,16 @@ KKT_ROWS = header_int("kkt_matvec.cuh", "ROWS")  # rows per colpass chunk
 
 def cell_tiles(h: int, gate: str) -> int:
     """Unit tiles of the cell GEMM at hidden width ``h`` for weights of
-    dtype ``gate`` ('bfloat16' or 'float32'): the row count of the
-    backward's row partials."""
+    dtype ``gate`` ('bfloat16' or 'float32')."""
     return -(-h // CELL_HB[gate])
+
+
+def row_partials(h: int, gate: str) -> int:
+    """The row count of the backward cell's row partials (dxv, dg) at
+    hidden width ``h``: one per unit tile for bf16 weights, one per
+    ``DELTA_HB`` units for float32 ones (their sums keep that grouping
+    whatever the tile)."""
+    return cell_tiles(h, gate) if gate == "bfloat16" else delta_partials(h)
 
 
 def delta_partials(h: int) -> int:

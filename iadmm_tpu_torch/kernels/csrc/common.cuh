@@ -32,40 +32,6 @@ __device__ __forceinline__ float as_operand(float v) {
   return to_f(from_f<T>(v));
 }
 
-// p[0..3] widened to float32, the elements at index >= lim read as zero
-// (lim <= 0: all, and p is not read).  vec: p is aligned for one 4-element
-// vector load (16 bytes of float32, 8 of bf16).
-__device__ __forceinline__ void fetch4(const float* p, int lim, bool vec,
-                                       float (&v)[4]) {
-  if (vec && lim >= 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = e < lim ? p[e] : 0.f;
-}
-__device__ __forceinline__ void fetch4(const __nv_bfloat16* p, int lim,
-                                       bool vec, float (&v)[4]) {
-  if (vec && lim >= 4) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&t.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&t.y));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = b.x;
-    v[3] = b.y;
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = e < lim ? __bfloat162float(p[e]) : 0.f;
-}
-
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.0f / (1.0f + expf(-v));
 }

@@ -10,8 +10,8 @@
 // mm(x, W) casts them (lstm_cell.py:60-65), on the tensor cores (wgmma over
 // U re-laid as Ut, hopper.cuh's core); or float32 weights, the TPU kernel's
 // float32 gates at Precision.HIGHEST, on the CUDA cores with nothing
-// rounded (cell_gemm.cuh's float32 main loop).  H' and C' are written in
-// the dtypes of H and C (bf16 or float32 each).
+// rounded (gemm_f32.cuh's FFMA core under cell_gemm.cuh).  H' and C' are
+// written in the dtypes of H and C (bf16 or float32 each).
 
 #include "cell_gemm.cuh"
 

@@ -14,13 +14,14 @@
 //                 (adjoint_kernel) and −Σ dxv for db_h (sum_kernel)
 //   cell adjoint  cell_bwd_bf16 / cell_bwd_f32: the forward's gate GEMM
 //                 H_k·U recomputed (cell_gemm.cuh's tiles: 128 tokens × the
-//                 i, f, o, u columns of 32 hidden units on hopper.cuh's
-//                 wgmma core, or of 16 in float32 FFMA), staged in shared
-//                 memory, with an epilogue that forms
+//                 i, f, o, u columns of 32 hidden units, on hopper.cuh's
+//                 wgmma core or gemm_f32.cuh's float32 FFMA core), staged
+//                 in shared memory, with an epilogue that forms
 //                 dH' = sH + ddel·W_hᵀ, dC' and the four dpre quarters, writes
 //                 dpre (in the compute dtype), sC ← dC'·f, and per-tile
 //                 partial sums for dxv, dg (rows) and db, dW, dW_h (columns)
-//   dH = dpre·Uᵀ  into sH                 (gemm_bf16.cuh / gemm_f32.cuh)
+//   dH = dpre·Uᵀ  into sH                 (gemm_bf16.cuh; float32:
+//                 gemm_f32.cuh on the transposed copies dpreᵀ and Uᵀ)
 //   dU += H_kᵀ·dpre                        (gemm_bf16.cuh / gemm_f32.cuh)
 //   reductions    the column partials into db, dW, dW_h; the row partials
 //                 into dxv and dg
@@ -156,11 +157,16 @@ __global__ void sum_kernel(const float* __restrict__ v, int count,
 }
 
 // The cell adjoint of train_rollout.py:553-620 for the float32 tile
-// (m0, u0): recompute the gate pre-activations, form dpre and the carries,
-// write the partial sums (see the header).  ddel = −dxv (after the update
-// adjoint).  T: the compute dtype of H, the weights and dpre (float).
-template <typename T>
-__global__ void __launch_bounds__(cell::THREADS32)
+// (blockIdx.y·BM, blockIdx.x·HB_F32): recompute the gate pre-activations on
+// cell_gemm.cuh's float32 core, form dpre and the carries, write the
+// partial sums (see the header): the row partials one per 16-unit group
+// (two 8-unit chains, added), the column partials per 128-row tile in row
+// order.  dpre is written twice, as (M, 4h) and transposed as dpreT (4h,
+// M), so that both weight-side GEMMs read their operands along rows.
+// ddel = −dxv (after the update adjoint).  T: the compute dtype of H, the
+// weights and dpre (float).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(cell::THREADS32, cell::T32::CTAS)
     cell_bwd_f32(const T* __restrict__ H_k, const T* __restrict__ H_n,
                     const float* __restrict__ C_k,
                     const float* __restrict__ C_n,
@@ -171,20 +177,25 @@ __global__ void __launch_bounds__(cell::THREADS32)
                     const float* __restrict__ bias,
                     const T* __restrict__ Wh, const float* __restrict__ sH,
                     float* __restrict__ sC, T* __restrict__ dpre,
+                    float* __restrict__ dpreT,
                     float* __restrict__ pxv, float* __restrict__ pg,
                     float* __restrict__ pdb, float* __restrict__ pdw0,
                     float* __restrict__ pdw1, float* __restrict__ pdwh,
                     int M, int h) {
   using cell::BM;
+  using cell::DELTA_HB;
   constexpr int HB = cell::HB_F32;
   constexpr int LDC = cell::LDC32;
-  __shared__ __align__(128) cell::Smem32 sm;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
   __shared__ float xs_s[BM], gs_s[BM], dd_s[BM];
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int u0 = blockIdx.y * HB;
+  const int m0 = blockIdx.y * BM;
+  const int u0 = blockIdx.x * HB;
   const int h4 = 4 * h;
   const int rows = min(BM, M - m0);
+  static_assert(cell::THREADS32 >= 5 * HB && cell::THREADS32 >= BM,
+                "a thread a row, then a column or a unit");
   if (tid < BM) {
     const int gr = m0 + tid;
     const bool ok = gr < M;
@@ -192,52 +203,59 @@ __global__ void __launch_bounds__(cell::THREADS32)
     gs_s[tid] = ok ? g[gr] : 0.f;
     dd_s[tid] = ok ? as_operand<T>(-dxv[gr]) : 0.f;
   }
-  cell::mainloop32<T>(H_k, U, M, h, m0, u0, sm);
+  cell::mainloop32<T, VEC>(H_k, U, M, h, m0, u0, sm);
 
-  // Epilogue: thread pair (2r, 2r+1) takes row r, 8 units each.
-  const int r = tid >> 1;
-  const int jb = (tid & 1) * 8;
-  const int gr = m0 + r;
-  float axv = 0.f, ag = 0.f;
-  if (gr < M) {
-    const float a0 = xs_s[r], a1 = gs_s[r], dd = dd_s[r];
-    for (int jj = 0; jj < 8; ++jj) {
-      const int j = jb + jj, u = u0 + j;
-      if (u >= h) break;
-      float pre[4];
+  // Epilogue: each (row r, 16-unit group half) of the tile, a thread each
+  // (one pass; a loop for cell_gemm.cuh's reason).
+  for (int p = tid; p < 2 * BM; p += cell::THREADS32) {
+    const int r = p >> 1;
+    const int half = p & 1;
+    const int gr = m0 + r;
+    float axv[2] = {0.f, 0.f}, ag[2] = {0.f, 0.f};
+    if (gr < M) {
+      const float a0 = xs_s[r], a1 = gs_s[r], dd = dd_s[r];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = q * h + u;
-        pre[q] = sm.C[r * LDC + q * HB + j] + a0 * to_f(W[col]) +
-                 a1 * to_f(W[h4 + col]) + bias[col];
-      }
-      const size_t o = (size_t)gr * h + u;
-      const float ig = sigmoidf(pre[0]), fg = sigmoidf(pre[1]);
-      const float og = sigmoidf(pre[2]), ug = tanhf(pre[3]);
-      const float tC = tanhf(C_n[o]);
-      const float dHn = sH[o] + dd * to_f(Wh[u]);
-      const float dCn = sC[o] + dHn * og * (1.0f - tC * tC);
-      float dp[4];
-      dp[2] = dHn * tC * og * (1.0f - og);
-      dp[0] = (dCn * ug) * ig * (1.0f - ig);
-      dp[3] = (dCn * ig) * (1.0f - ug * ug);
-      dp[1] = (dCn * C_k[o]) * fg * (1.0f - fg);
-      sC[o] = dCn * fg;
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll 1
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = half * DELTA_HB + 8 * c + jj, u = u0 + j;
+          if (u >= h) break;
+          float pre[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = q * h + u;
-        dpre[(size_t)gr * h4 + col] = from_f<T>(dp[q]);
-        sm.C[r * LDC + q * HB + j] = dp[q];
-        axv += dp[q] * to_f(W[col]);
-        ag += dp[q] * to_f(W[h4 + col]);
+          for (int q = 0; q < 4; ++q) {
+            const int col = q * h + u;
+            pre[q] = sm[r * LDC + q * HB + j] + a0 * to_f(W[col]) +
+                     a1 * to_f(W[h4 + col]) + bias[col];
+          }
+          const size_t o = (size_t)gr * h + u;
+          const float ig = sigmoidf(pre[0]), fg = sigmoidf(pre[1]);
+          const float og = sigmoidf(pre[2]), ug = tanhf(pre[3]);
+          const float tC = tanhf(C_n[o]);
+          const float dHn = sH[o] + dd * to_f(Wh[u]);
+          const float dCn = sC[o] + dHn * og * (1.0f - tC * tC);
+          float dp[4];
+          dp[2] = dHn * tC * og * (1.0f - og);
+          dp[0] = (dCn * ug) * ig * (1.0f - ig);
+          dp[3] = (dCn * ig) * (1.0f - ug * ug);
+          dp[1] = (dCn * C_k[o]) * fg * (1.0f - fg);
+          sC[o] = dCn * fg;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int col = q * h + u;
+            dpre[(size_t)gr * h4 + col] = from_f<T>(dp[q]);
+            dpreT[(size_t)col * M + gr] = dp[q];
+            sm[r * LDC + q * HB + j] = dp[q];
+            axv[c] += dp[q] * to_f(W[col]);
+            ag[c] += dp[q] * to_f(W[h4 + col]);
+          }
+        }
       }
     }
-  }
-  axv += __shfl_xor_sync(0xffffffffu, axv, 1);
-  ag += __shfl_xor_sync(0xffffffffu, ag, 1);
-  if ((tid & 1) == 0 && gr < M) {
-    pxv[(size_t)blockIdx.y * M + gr] = axv;
-    pg[(size_t)blockIdx.y * M + gr] = ag;
+    const int grp = blockIdx.x * (HB / DELTA_HB) + half;
+    if (gr < M && grp * DELTA_HB < h) {
+      pxv[(size_t)grp * M + gr] = axv[0] + axv[1];
+      pg[(size_t)grp * M + gr] = ag[0] + ag[1];
+    }
   }
   __syncthreads();
 
@@ -247,12 +265,12 @@ __global__ void __launch_bounds__(cell::THREADS32)
     if (u < h) {
       float sb = 0.f, s0 = 0.f, s1 = 0.f;
       for (int rr = 0; rr < rows; ++rr) {
-        const float d = sm.C[rr * LDC + tid];
+        const float d = sm[rr * LDC + tid];
         sb += d;
         s0 += xs_s[rr] * d;
         s1 += gs_s[rr] * d;
       }
-      const size_t o = (size_t)blockIdx.x * h4 + q * h + u;
+      const size_t o = (size_t)blockIdx.y * h4 + q * h + u;
       pdb[o] = sb;
       pdw0[o] = s0;
       pdw1[o] = s1;
@@ -263,7 +281,7 @@ __global__ void __launch_bounds__(cell::THREADS32)
       float s = 0.f;
       for (int rr = 0; rr < rows; ++rr)
         s += to_f(H_n[(size_t)(m0 + rr) * h + u]) * dd_s[rr];
-      pdwh[(size_t)blockIdx.x * h + u] = s;
+      pdwh[(size_t)blockIdx.y * h + u] = s;
     }
   }
 }
@@ -517,21 +535,25 @@ void cell_bwd(const float* H_k, const float* H_n, const void* Ut,
               const float* C_k, const float* C_n, const float* xv_k,
               const float* g, const float* dxv, const void* W, const void* U,
               const float* b, const void* Wh, const float* sH, float* sC,
-              float* dpre, float* pxv, float* pg, float* pdb, float* pdw0,
-              float* pdw1, float* pdwh, int M, int h, cudaStream_t s) {
-  dim3 grid((M + cell::BM - 1) / cell::BM, cell::n_tiles<float>(h));
-  cell_bwd_f32<float><<<grid, cell::THREADS32, 0, s>>>(
+              float* dpre, float* dpreT, float* pxv, float* pg, float* pdb,
+              float* pdw0, float* pdw1, float* pdwh, int M, int h,
+              cudaStream_t s) {
+  auto kernel = cell::vec32<float>(H_k, U, h) ? cell_bwd_f32<float, true>
+                                              : cell_bwd_f32<float, false>;
+  hop::allow_smem(kernel, cell::smem32<float>());
+  dim3 grid(cell::n_tiles<float>(h), (M + cell::BM - 1) / cell::BM);
+  kernel<<<grid, cell::THREADS32, cell::smem32<float>(), s>>>(
       H_k, H_n, C_k, C_n, xv_k, g, dxv, static_cast<const float*>(W),
       static_cast<const float*>(U), b, static_cast<const float*>(Wh), sH, sC,
-      dpre, pxv, pg, pdb, pdw0, pdw1, pdwh, M, h);
+      dpre, dpreT, pxv, pg, pdb, pdw0, pdw1, pdwh, M, h);
 }
 void cell_bwd(const __nv_bfloat16* H_k, const __nv_bfloat16* H_n,
               const void* Ut, const float* C_k, const float* C_n,
               const float* xv_k, const float* g, const float* dxv,
               const void* W, const void* U, const float* b, const void* Wh,
-              const float* sH, float* sC, __nv_bfloat16* dpre, float* pxv,
-              float* pg, float* pdb, float* pdw0, float* pdw1, float* pdwh,
-              int M, int h, cudaStream_t s) {
+              const float* sH, float* sC, __nv_bfloat16* dpre, float*,
+              float* pxv, float* pg, float* pdb, float* pdw0, float* pdw1,
+              float* pdwh, int M, int h, cudaStream_t s) {
   hop::Operand a, bo;
   CUtensorMap ma, mb;
   cell::operands(H_k, 0, Ut, M, h, a, bo, &ma, &mb);
@@ -542,19 +564,6 @@ void cell_bwd(const __nv_bfloat16* H_k, const __nv_bfloat16* H_n,
       static_cast<const __nv_bfloat16*>(W), b,
       static_cast<const __nv_bfloat16*>(Wh), sH, sC, dpre, pxv, pg, pdb,
       pdw0, pdw1, pdwh, M, h);
-}
-
-// The two weight-side GEMMs in the compute dtype.
-template <bool A_COL, bool B_COL, bool ACC>
-void weight_gemm(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B,
-                 int ldb, float* C, int ldc, int M, int N, int K,
-                 cudaStream_t s) {
-  gemm::launch<A_COL, B_COL, ACC>(A, lda, B, ldb, C, ldc, M, N, K, s);
-}
-template <bool A_COL, bool B_COL, bool ACC>
-void weight_gemm(const float* A, int lda, const float* B, int ldb, float* C,
-                 int ldc, int M, int N, int K, cudaStream_t s) {
-  gemm32::launch<A_COL, B_COL, ACC>(A, lda, B, ldb, C, ldc, M, N, K, s);
 }
 
 // Reverse step k (slots k and k+1 of the streams) at schedule index t, its
@@ -572,7 +581,8 @@ int bwd_step(
     void* sH, void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh,
     void* drho, void* dalpha, void* r, void* g, void* dv, void* dg, void* drr,
     void* dun, void* drv, void* dal, void* scal, void* mv_partial,
-    void* rowdot, void* dpre, void* pxv, void* pg, void* pdb, void* pdw0,
+    void* rowdot, void* dpre, void* dpreT, void* pxv, void* pg, void* pdb,
+    void* pdw0,
     void* pdw1, void* pdwh, int B, int n, int m, int h, float sigma,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -580,7 +590,7 @@ int bwd_step(
   const int nch = kkt::n_chunks(n, m);
   const int eb = admm::eblocks(M);
   const int n_mt = (M + cell::BM - 1) / cell::BM;
-  const int n_ut = cell::n_tiles<T>(h);
+  const int n_rp = cell::n_row_partials<T>(h);
   const size_t slab = (size_t)M * h;
   const auto* hsb = static_cast<const T*>(hs);
   const auto* csf = static_cast<const float*>(cs);
@@ -645,21 +655,32 @@ int bwd_step(
   cell_bwd(hsb + k * slab, hsb + (k + 1) * slab, Ut, csf + k * slab,
            csf + (k + 1) * slab, xv_k, gf, dxvf, W, U,
            static_cast<const float*>(b), Wh, static_cast<const float*>(sH),
-           static_cast<float*>(sC), dpreb, static_cast<float*>(pxv),
+           static_cast<float*>(sC), dpreb, static_cast<float*>(dpreT),
+           static_cast<float*>(pxv),
            static_cast<float*>(pg), static_cast<float*>(pdb),
            static_cast<float*>(pdw0), static_cast<float*>(pdw1),
            static_cast<float*>(pdwh), M, h, s);
-  weight_gemm<false, true, false>(dpreb, h4, static_cast<const T*>(U), h4,
-                                  static_cast<float*>(sH), h, M, h, h4, s);
-  weight_gemm<true, false, true>(hsb + k * slab, h, dpreb, h4,
-                                 static_cast<float*>(dU), h4, h, h4, M, s);
+  float* sHf = static_cast<float*>(sH);
+  float* dUf = static_cast<float*>(dU);
+  if constexpr (std::is_same<T, float>::value) {
+    // dH = (dpreᵀ)ᵀ·Uᵀ from the transposed copies (Ut is Uᵀ here), and dU,
+    // on gemm_f32.cuh's C = AᵀB: every operand read along its rows
+    gemm32::launch<false>(static_cast<const float*>(dpreT), M,
+                          static_cast<const float*>(Ut), h, sHf, h, M, h,
+                          h4, s);
+    gemm32::launch<true>(hsb + k * slab, h, dpreb, h4, dUf, h4, h, h4, M, s);
+  } else {
+    gemm::launch<false, true, false>(dpreb, h4, U, h4, sHf, h, M, h, h4, s);
+    gemm::launch<true, false, true>(hsb + k * slab, h, dpreb, h4, dUf, h4, h,
+                                    h4, M, s);
+  }
   reduce_cols_kernel<<<admm::eblocks(h4), 256, 0, s>>>(
       static_cast<const float*>(pdb), static_cast<const float*>(pdw0),
       static_cast<const float*>(pdw1), static_cast<const float*>(pdwh), n_mt,
       h, static_cast<float*>(db), static_cast<float*>(dW),
       static_cast<float*>(dWh));
   reduce_rows_kernel<<<eb, 256, 0, s>>>(static_cast<const float*>(pxv),
-                                        static_cast<const float*>(pg), n_ut,
+                                        static_cast<const float*>(pg), n_rp,
                                         dxvf, dgf, M);
 
   // vector tail
@@ -686,7 +707,8 @@ int bwd_seg(
     void* dz, void* dxv, void* sH, void* sC, void* dW, void* dU, void* db,
     void* dWh, void* dbh, void* drho, void* dalpha, void* r, void* g,
     void* dv, void* dg, void* drr, void* dun, void* drv, void* dal,
-    void* scal, void* mv_partial, void* rowdot, void* dpre, void* pxv,
+    void* scal, void* mv_partial, void* rowdot, void* dpre, void* dpreT,
+    void* pxv,
     void* pg, void* pdb, void* pdw0, void* pdw1, void* pdwh, int B, int n,
     int m, int h, int J, float sigma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -704,7 +726,9 @@ int bwd_seg(
                         n,
                         m,
                         sigma};
-  const admm::Weights w{W, Ut, static_cast<const float*>(b), Wh,
+  // the recompute's cell reads Ut for bf16 weights, U for float32 ones
+  const admm::Weights w{W, std::is_same<T, float>::value ? U : Ut,
+                        static_cast<const float*>(b), Wh,
                         static_cast<const float*>(bh), h};
   const admm::KktScratch ks{static_cast<float*>(mv_partial),
                             static_cast<float*>(rowdot)};
@@ -734,8 +758,8 @@ int bwd_seg(
                       alpha_raw, W, U, Ut, b, Wh, hs, cs, xs, ys, zs, xvs, dpr,
                       ddr, dx, dy, dz, dxv, sH, sC, dW, dU, db, dWh, dbh, drho,
                       dalpha, r, g, dv, dg, drr, dun, drv, dal, scal,
-                      mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1, pdwh,
-                      B, n, m, h, sigma, stream);
+                      mv_partial, rowdot, dpre, dpreT, pxv, pg, pdb, pdw0,
+                      pdw1, pdwh, B, n, m, h, sigma, stream);
   return err;
 }
 
@@ -752,7 +776,9 @@ extern "C" {
 // (1,); drho, dalpha (J,): slot k written.  The rest is scratch: r, g, dv,
 // dg, drr, dun (B,n+m), drv (B,m), dal (B,n), scal (1,), mv_partial
 // (B, ceil((n+m)/32), n), rowdot (B,m), dpre (B·(n+m), 4h) in the dtype of
-// Q, pxv (cell::n_partials(h), B·(n+m)), pg (cell::n_tiles<T>(h),
+// Q, dpreT (4h, B·(n+m)) float32 (read only when f32: dpre transposed, the
+// float32 dH's operand, beside Ut = Uᵀ (4h, h) for float32 weights), pxv
+// (cell::n_partials(h), B·(n+m)), pg (cell::n_row_partials<T>(h),
 // B·(n+m)), pdb, pdw0, pdw1 (ceil(B·(n+m)/cell::BM), 4h), pdwh
 // (ceil(B·(n+m)/cell::BM), h).
 int iadmm_train_bwd_step(
@@ -766,15 +792,16 @@ int iadmm_train_bwd_step(
     void* sC, void* dW, void* dU, void* db, void* dWh, void* dbh, void* drho,
     void* dalpha, void* r, void* g, void* dv, void* dg, void* drr, void* dun,
     void* drv, void* dal, void* scal, void* mv_partial, void* rowdot,
-    void* dpre, void* pxv, void* pg, void* pdb, void* pdw0, void* pdw1,
+    void* dpre, void* dpreT, void* pxv, void* pg, void* pdb, void* pdw0,
+    void* pdw1,
     void* pdwh, int B, int n, int m, int h, int J, int f32, float sigma,
     void* stream) {
   auto run = f32 ? &bwd_step<float> : &bwd_step<__nv_bfloat16>;
   return run(k, t, k, J, Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, Ut,
              b, Wh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH, sC,
              dW, dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun, drv,
-             dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
-             pdwh, B, n, m, h, sigma, stream);
+             dal, scal, mv_partial, rowdot, dpre, dpreT, pxv, pg, pdb, pdw0,
+             pdw1, pdwh, B, n, m, h, sigma, stream);
 }
 
 // Replaces _bwd_seg_kernel (train_rollout.py:664): one segment of J steps,
@@ -802,15 +829,16 @@ int iadmm_train_bwd_seg(
     void* dz, void* dxv, void* sH, void* sC, void* dW, void* dU, void* db,
     void* dWh, void* dbh, void* drho, void* dalpha, void* r, void* g,
     void* dv, void* dg, void* drr, void* dun, void* drv, void* dal,
-    void* scal, void* mv_partial, void* rowdot, void* dpre, void* pxv,
+    void* scal, void* mv_partial, void* rowdot, void* dpre, void* dpreT,
+    void* pxv,
     void* pg, void* pdb, void* pdw0, void* pdw1, void* pdwh, int B, int n,
     int m, int h, int J, int f32, float sigma, void* stream) {
   auto run = f32 ? &bwd_seg<float> : &bwd_seg<__nv_bfloat16>;
   return run(t0, col, L,  Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, U, Ut,
              b, Wh, bh, hs, cs, xs, ys, zs, xvs, dpr, ddr, dx, dy, dz, dxv, sH,
              sC, dW, dU, db, dWh, dbh, drho, dalpha, r, g, dv, dg, drr, dun,
-             drv, dal, scal, mv_partial, rowdot, dpre, pxv, pg, pdb, pdw0, pdw1,
-             pdwh, B, n, m, h, J, sigma, stream);
+             drv, dal, scal, mv_partial, rowdot, dpre, dpreT, pxv, pg, pdb,
+             pdw0, pdw1, pdwh, B, n, m, h, J, sigma, stream);
 }
 
 // The weight-side GEMM core alone, for timing and checking it: C (M, N)
@@ -829,6 +857,23 @@ int iadmm_gemm_bf16(int a_col, int b_col, int acc, const void* A, int lda,
     gemm::launch<true, false, true>(A, lda, B, ldb, Cf, ldc, M, N, K, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return hop::last_error();
+}
+
+// The float32 GEMM core alone, for timing and checking it: C (M, N)
+// (=|+=) AᵀB over K in float32 FFMA, A (K, M) and B (K, N) row-major, the
+// form of bwd_step's two float32 products: dH from the transposed copies
+// (acc 0) and dU (acc 1).  Any leading dimension, 4-byte aligned
+// addresses.  a_col must be 1 and b_col 0: otherwise
+// cudaErrorInvalidValue.
+int iadmm_gemm_f32(int a_col, int b_col, int acc, const void* A, int lda,
+                   const void* B, int ldb, void* C, int ldc, int M, int N,
+                   int K, void* stream) {
+  if (!a_col || b_col) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = acc ? &gemm32::launch<true> : &gemm32::launch<false>;
+  run(static_cast<const float*>(A), lda, static_cast<const float*>(B), ldb,
+      static_cast<float*>(C), ldc, M, N, K, s);
   return hop::last_error();
 }
 

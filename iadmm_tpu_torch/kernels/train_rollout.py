@@ -366,11 +366,11 @@ def train_bwd_seg_plain(weights, state, data, dfinal, dpr, ddr, *, t0: int,
 
 _FWD_ARGS = ([_build.I] * 2 + [_build.P] * 27 + [_build.I] * 6
              + [_build.F, _build.P])
-_BWD_ARGS = ([_build.I] * 2 + [_build.P] * 52 + [_build.I] * 6
+_BWD_ARGS = ([_build.I] * 2 + [_build.P] * 53 + [_build.I] * 6
              + [_build.F, _build.P])
 # the segment entry points: t0, col, L first; the backward also takes b_h
 _FWD_SEG_ARGS = [_build.I] + _FWD_ARGS
-_BWD_SEG_ARGS = ([_build.I] * 3 + [_build.P] * 53 + [_build.I] * 6
+_BWD_SEG_ARGS = ([_build.I] * 3 + [_build.P] * 54 + [_build.I] * 6
                  + [_build.F, _build.P])
 _GEMM_ARGS = ([_build.I] * 3 + [_build.P, _build.I] * 3 + [_build.I] * 3
               + [_build.P])
@@ -420,14 +420,18 @@ def _prep_cuda(weights, data, compute_dtype, backward=False):
     """Kernel operands: matrices and cell weights in the compute dtype,
     float32 vectors, all contiguous.  The cell GEMM reads Ut, U re-laid
     (:func:`lstm_cell.relaid_u`) for bf16 and U itself for float32; the
-    ``backward`` also reads U (dH = dpre·Uᵀ) and takes it before Ut."""
+    ``backward`` also reads U (dH = dpre·Uᵀ) and takes it before Ut, which
+    is Uᵀ there for float32 (the float32 dH reads it along its rows)."""
     cdt, f32 = _CDT[compute_dtype], torch.float32
     W, U, b, W_h, b_h, rho, alpha = weights
     Q, A0, p, zl, zu, rhom = data
     mats = [_build.aligned(Q.to(cdt)), _build.aligned(A0.to(cdt))]
     vecs = [t.to(f32).contiguous() for t in (p, zl, zu, rhom, rho, alpha)]
     Uc = _build.aligned(U.to(cdt))
-    Ut = Uc if cdt == f32 else relaid_u(Uc, Uc.shape[0])
+    if cdt != f32:
+        Ut = relaid_u(Uc, Uc.shape[0])
+    else:
+        Ut = Uc.t().contiguous() if backward else Uc
     wts = [W.to(cdt).contiguous(), *([Uc] if backward else []), Ut,
            b.to(f32).contiguous(), W_h.reshape(-1).to(cdt).contiguous(),
            b_h.reshape(-1).to(f32).contiguous()]
@@ -462,10 +466,11 @@ def _fwd_scratch(B, n, m, h, dev):
 def _bwd_scratch(B, n, m, h, compute_dtype, dev):
     """The scratch of the backward entry points, in their order.  pxv is
     also the segment backward's delta scratch (``cell_scratch``'s rows,
-    at least one per unit tile)."""
+    at least one per unit tile); dpreT, dpre transposed, is read by the
+    float32 dH only (one element for bf16)."""
     S, M, h4 = n + m, B * (n + m), 4 * h
     n_mt = _build.cell_row_tiles(M)
-    n_ut = _build.cell_tiles(h, compute_dtype)
+    n_rp = _build.row_partials(h, compute_dtype)
     n_dp = _build.delta_partials(h)
 
     def empty(*shape, dt=torch.float32):
@@ -474,7 +479,8 @@ def _bwd_scratch(B, n, m, h, compute_dtype, dev):
             + [empty(B, m), empty(B, n), empty(1),       # drv dal scal
                empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
                empty(B, m), empty(M, h4, dt=_CDT[compute_dtype]),
-               empty(n_dp, M), empty(n_ut, M),           # pxv pg
+               empty(h4, M) if compute_dtype == "float32" else empty(1),
+               empty(n_dp, M), empty(n_rp, M),           # pxv pg
                empty(n_mt, h4), empty(n_mt, h4), empty(n_mt, h4),
                empty(n_mt, h)])                          # pdb pdw0 pdw1 pdwh
 
@@ -654,6 +660,37 @@ train_bwd_seg_cuda.launches = 0      # segments launched, bf16 compute
 train_bwd_seg_cuda.launches_f32 = 0  # segments launched, float32 compute
 
 
+def _gemm_core(kind, dt, products, A, B, C, a_col, b_col, accumulate):
+    """C (M, N) float32 = op(A)·op(B), or += with ``accumulate``, through
+    the C entry point ``iadmm_gemm_<kind>`` for operands of dtype ``dt``,
+    which takes the (a_col, b_col, accumulate) flags in ``products``; on
+    CPU tensors the float32 product of the same operands."""
+    name = f"{kind}_gemm"
+    opA = A.t() if a_col else A
+    opB = B.t() if b_col else B
+    (M, K), N = opA.shape, opB.shape[1]
+    if opB.shape[0] != K or tuple(C.shape) != (M, N):
+        raise ValueError(f"{name}: {tuple(opA.shape)} x "
+                         f"{tuple(opB.shape)} into {tuple(C.shape)}")
+    if not C.is_cuda:
+        prod = opA.float() @ opB.float()
+        return C.add_(prod) if accumulate else C.copy_(prod)
+    flags = (int(a_col), int(b_col), int(accumulate))
+    if flags not in products:
+        raise ValueError(f"{name}: the kernel takes the dH and dU "
+                         f"products {products} only, not (a_col, b_col, "
+                         f"accumulate) = {flags}")
+    for k, t, want in (("A", A, dt), ("B", B, dt), ("C", C, torch.float32)):
+        if t.dtype != want or not t.is_contiguous() or t.device != C.device:
+            raise ValueError(f"{name}: {k} must be a contiguous {want} on "
+                             f"{C.device}")
+    fn = _build.function("train_bwd", f"iadmm_gemm_{kind}", _GEMM_ARGS)
+    code = fn(*flags, A.data_ptr(), A.shape[1], B.data_ptr(), B.shape[1],
+              C.data_ptr(), N, M, N, K, _build.stream_ptr(C.device))
+    _build.check(code, f"iadmm_gemm_{kind}")
+    return C
+
+
 def bf16_gemm(A, B, C, *, a_col: bool, b_col: bool, accumulate: bool):
     """The training backward's bf16 GEMM core alone (``csrc/gemm_bf16.cuh``
     through ``iadmm_gemm_bf16``), to time and check it apart from the
@@ -663,30 +700,21 @@ def bf16_gemm(A, B, C, *, a_col: bool, b_col: bool, accumulate: bool):
     two products: dH = dpre·Uᵀ (a_col=False, b_col=True, accumulate=False)
     and dU += H_kᵀ·dpre (True, False, True).  On CPU tensors: float32
     products of the same operands.  Returns C."""
-    opA = A.t() if a_col else A
-    opB = B.t() if b_col else B
-    (M, K), N = opA.shape, opB.shape[1]
-    if opB.shape[0] != K or tuple(C.shape) != (M, N):
-        raise ValueError(f"bf16_gemm: {tuple(opA.shape)} x "
-                         f"{tuple(opB.shape)} into {tuple(C.shape)}")
-    if not C.is_cuda:
-        prod = opA.float() @ opB.float()
-        return C.add_(prod) if accumulate else C.copy_(prod)
-    flags = (int(a_col), int(b_col), int(accumulate))
-    if flags not in ((0, 1, 0), (1, 0, 1)):
-        raise ValueError(f"bf16_gemm: the kernel takes the dH and dU "
-                         f"products only, not (a_col, b_col, accumulate) = "
-                         f"{flags}")
-    for k, t, dt in (("A", A, torch.bfloat16), ("B", B, torch.bfloat16),
-                     ("C", C, torch.float32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != C.device:
-            raise ValueError(f"bf16_gemm: {k} must be a contiguous {dt} on "
-                             f"{C.device}")
-    fn = _build.function("train_bwd", "iadmm_gemm_bf16", _GEMM_ARGS)
-    code = fn(*flags, A.data_ptr(), A.shape[1], B.data_ptr(), B.shape[1],
-              C.data_ptr(), N, M, N, K, _build.stream_ptr(C.device))
-    _build.check(code, "iadmm_gemm_bf16")
-    return C
+    return _gemm_core("bf16", torch.bfloat16, ((0, 1, 0), (1, 0, 1)), A, B,
+                      C, a_col, b_col, accumulate)
+
+
+def f32_gemm(A, B, C, *, a_col: bool, b_col: bool, accumulate: bool):
+    """The float32 FFMA GEMM core alone (``csrc/gemm_f32.cuh`` through
+    ``iadmm_gemm_f32``), the core of every float32 product of the port:
+    as :func:`bf16_gemm` with A and B float32 (contiguous, any leading
+    dimension, 4-byte aligned), summed in float32 FFMA (no TF32).  The
+    kernel reads both operands along their rows, so it takes C = AᵀB:
+    dH = (dpreᵀ)ᵀ·Uᵀ from the transposed copies the backward keeps
+    (a_col=True, b_col=False, accumulate=False) and dU += H_kᵀ·dpre (True,
+    False, True).  On CPU tensors: the float32 product.  Returns C."""
+    return _gemm_core("f32", torch.float32, ((1, 0, 0), (1, 0, 1)), A, B,
+                      C, a_col, b_col, accumulate)
 
 
 def _param_grads(weights, grads, t0):

@@ -16,21 +16,29 @@ WIDTHS = (16, 20, 24, 32, 44, 800, 808)
 
 
 def test_tile_constants():
-    """The tile constants the scratch and Ut are sized from: the bf16 tile
-    is the wgmma core's 128 x 128 (4 gates of 32 units: h = 800 is 25
-    tiles), the float32 tile 16 units (50 tiles at h = 800), and delta's
-    partials are one per 16 units on both profiles."""
+    """The tile constants the scratch and Ut are sized from: both profiles'
+    cell tiles are 128 x 128 (4 gates of 32 units: h = 800 is 25 tiles, so
+    H is read 25 times), the bf16 one the wgmma core's; delta's partials
+    are one per 16 units on both profiles, and so are the float32
+    backward's row partials (one per unit tile for bf16)."""
     assert _build.CELL_BM == 128
-    assert _build.CELL_HB == {"bfloat16": 32, "float32": 16}
+    assert _build.CELL_HB == {"bfloat16": 32, "float32": 32}
     assert 4 * _build.CELL_HB["bfloat16"] == _build.header_int("hopper.cuh",
                                                                "BN")
     assert _build.DELTA_HB == 16 and _build.UT_ALIGN == 8
     assert _build.cell_tiles(800, "bfloat16") == 25
-    assert _build.cell_tiles(800, "float32") == 50
+    assert _build.cell_tiles(800, "float32") == 25
     assert _build.delta_partials(800) == 50
+    assert _build.row_partials(800, "bfloat16") == 25
+    assert _build.row_partials(800, "float32") == 50
+    for h in WIDTHS:
+        for gate in PROFILES:
+            assert _build.cell_tiles(h, gate) == -(-h // 32)
+        assert _build.row_partials(h, "bfloat16") == -(-h // 32)
+        assert _build.row_partials(h, "float32") == -(-h // 16)
 
 
-@pytest.mark.parametrize("h", (20, 800, 808))
+@pytest.mark.parametrize("h", WIDTHS)
 def test_cell_scratch(h):
     """The delta partials: one float32 row of M per 16 hidden units."""
     M = 2 * 1037
@@ -39,27 +47,32 @@ def test_cell_scratch(h):
 
 
 @pytest.mark.parametrize("cdt", PROFILES)
-@pytest.mark.parametrize("h", (20, 800, 808))
+@pytest.mark.parametrize("h", WIDTHS)
 def test_train_scratch_per_profile(cdt, h):
     """The training pair's scratch, in the entry points' order: the
     forward's delta partials (one row per 16 units), the backward's row
-    partials (pg: one row per unit tile; pxv, also the segment backward's
-    delta scratch: one per 16 units), column partials (pdb, pdw0, pdw1,
-    pdwh: one row per 128-token tile) and dpre in the compute dtype."""
+    partials (pg: one row per 32-unit tile for bf16, per 16 units for
+    float32; pxv, also the segment backward's delta scratch: one per 16
+    units), column partials (pdb, pdw0, pdw1, pdwh: one row per 128-token
+    tile), dpre in the compute dtype and, for float32, dpre transposed
+    (the float32 dH's operand; one element for bf16)."""
     B, n, m = 2, 300, 237
     S, M = n + m, B * (n + m)
-    n_ut = -(-h // {"bfloat16": 32, "float32": 16}[cdt])
+    n_rp = -(-h // {"bfloat16": 32, "float32": 16}[cdt])
     n_dp = -(-h // 16)
     n_mt = -(-M // 128)
     fwd = ttr._fwd_scratch(B, n, m, h, "cpu")
     assert [tuple(t.shape) for t in fwd] == [
         (B, S), (B, S), (B, -(-S // 32), n), (B, m), (n_dp, M)]
     bwd = ttr._bwd_scratch(B, n, m, h, cdt, "cpu")
+    dpre_t = (4 * h, M) if cdt == "float32" else (1,)
     assert [tuple(t.shape) for t in bwd] == (
         [(B, S)] * 6 + [(B, m), (B, n), (1,), (B, -(-S // 32), n), (B, m),
-                        (M, 4 * h), (n_dp, M), (n_ut, M), (n_mt, 4 * h),
-                        (n_mt, 4 * h), (n_mt, 4 * h), (n_mt, h)])
+                        (M, 4 * h), dpre_t, (n_dp, M), (n_rp, M),
+                        (n_mt, 4 * h), (n_mt, 4 * h), (n_mt, 4 * h),
+                        (n_mt, h)])
     assert bwd[11].dtype == ttr._CDT[cdt]
+    assert bwd[12].dtype == torch.float32
 
 
 def _column_map(h):

@@ -83,10 +83,16 @@ def test_cell_matches_plain(dev, h, S, hc):
 
 @pytest.mark.parametrize("h,S,hc", [(16, 40, torch.float32),
                                     (20, 37, torch.float32),
-                                    (64, 300, torch.bfloat16)])
+                                    (64, 300, torch.bfloat16),
+                                    (44, 133, torch.bfloat16),
+                                    (21, 37, torch.bfloat16),
+                                    (27, 37, torch.float32),
+                                    (808, 37, torch.float32)])
 def test_float32_cell_matches_plain(no_tf32, h, S, hc):
-    """Float32 gates, float32 or bf16 H/C, ragged h = 20 included; two
-    calls bitwise equal."""
+    """Float32 gates, float32 or bf16 H/C, ragged h = 20 included (a bf16 H
+    copied in 16-byte pieces at h = 64, in 4-byte words at h = 44 and at
+    the odd h = 21, whose rows start mid-word; U's columns 4 bytes at a time
+    at h = 27); two calls bitwise equal."""
     dev = no_tf32
     p, g = _params(h, h)
     keys = [p[k].to(dev) for k in tcell.CELL_KEYS]
@@ -348,6 +354,58 @@ def test_bf16_gemm_matches_plain(no_tf32, M, h):
     ref = dU0 + H.float().T @ dpre.float()
     torch.testing.assert_close(dU, ref, rtol=0,
                                atol=1e-4 * float(ref.abs().max()))
+    assert torch.equal(dU, again)
+
+
+def _f32(shape, g, dev, offset):
+    """A contiguous float32 tensor of ``shape`` whose data starts
+    ``offset`` elements into its storage (offset 1: off 16 bytes)."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.empty(n + offset, device=dev)
+    out = buf[offset:].view(shape)
+    out.copy_(torch.randn(shape, generator=g))
+    return out
+
+
+@pytest.mark.parametrize("M,h,offset", [(2 * 1037, 20, 0),
+                                        (2 * 1037, 44, 1),
+                                        (2 * 1037, 212, 0),
+                                        (2 * 1037, 808, 1),
+                                        (2 * 1037, 27, 0),
+                                        (4000, 800, 0)])
+def test_f32_gemm_matches_float64(no_tf32, M, h, offset):
+    """The float32 FFMA GEMM core alone, as the float32 backward runs it:
+    dH = (dpreᵀ)ᵀ·Uᵀ from the transposed copies and dU += H_kᵀ·dpre,
+    against the float64 product of the same operands, to 1e-5 of max|ref|
+    (float32 sums over K = 4h or M); ragged M and h, h = 27 (leading
+    dimensions of H and dH not a multiple of 4), operands and results off
+    16 bytes (offset 1); two calls bitwise equal."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    dev = no_tf32
+    g = torch.Generator().manual_seed(M + h)
+    dpreT = _f32((4 * h, M), g, dev, offset)
+    UT = _f32((4 * h, h), g, dev, offset)
+    H = _f32((M, h), g, dev, offset)
+    dpre = _f32((M, 4 * h), g, dev, offset)
+    dpre.copy_(dpreT.T)
+    dU0 = _f32((h, 4 * h), g, dev, 0)
+    dH, dH2 = _f32((M, h), g, dev, offset), torch.empty((M, h), device=dev)
+    for out in (dH, dH2):
+        ttr.f32_gemm(dpreT, UT, out, a_col=True, b_col=False,
+                     accumulate=False)
+    ref = dpreT.double().T @ UT.double()
+    torch.testing.assert_close(dH.double(), ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(dH, dH2)
+    dU, again = _f32((h, 4 * h), g, dev, offset), dU0.clone()
+    dU.copy_(dU0)
+    for out in (dU, again):
+        ttr.f32_gemm(H, dpre, out, a_col=True, b_col=False, accumulate=True)
+    ref = dU0.double() + H.double().T @ dpre.double()
+    torch.testing.assert_close(dU.double(), ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
     assert torch.equal(dU, again)
 
 
