@@ -37,7 +37,12 @@ Stage II's condensed-system solvers:
       backward's GEMM cores alone (dH, dU at B=2 and 16): the bf16 core
       against the float32 product of its operands, the float32 FFMA core
       against the float64 product at F32_GEMM_TOL, each timed (TFLOP/s)
-      beside torch.matmul in its dtype (TF32 off);
+      beside torch.matmul in its dtype (TF32 off); the forward's device
+      time by kernel and its busy share (device time over wall time); then
+      [kkt pass], the KKT pass that every iteration runs, alone at n = m =
+      1000 at B = 2, 8, 16 in bf16 and float32, with one and two
+      right-hand sides: against its plain version, its device time beside
+      one read of [Q; A0] from memory, its bound and torch.bmm;
   (g) training: ``harness.train`` with train_backend='fused' and the fast
       profile, 2 epochs on a generated QP_1000_500_500 dataset (16
       instances, B=2, J = outer_T = 100), then ``make_solver`` serves one
@@ -92,7 +97,8 @@ Stage II's condensed-system solvers:
       the stream pair (losses, final state, every gradient leaf, the start
       state's cotangents), the backward twice bitwise equal, and held to the
       plain segment pair at (f)/(l)'s limits; timed at J=100 in segments of
-      2, at B=2 and B=16, beside the stream pair;
+      2, at B=2 and B=16, beside the stream pair, with the segment
+      forward's device time by kernel and busy share;
   (p) the shipped config through ``cli.train --train_backend fused
       --batch_size 16`` (40 generated instances: 32 train, 2 chunk
       updates), at its float32 profile and at the fast one: the run must
@@ -144,16 +150,19 @@ move a result): the bf16-gate cell at six shapes and the float32-gate
 cell at five (the flagship shape with both state dtypes, ragged ones), a
 J=6 bf16 training forward at B=2, the float32 stream pair and segment
 pair (segments of 2) at J=6 with every gradient and start-state
-cotangent, (d)'s first request with its LU and pre-polish references and
-a float32 ``make_solver`` solve, in one file per checkout (copy this
+cotangent, the J=100 forward at B=2 at both profiles, one bf16 segment
+call at B=16, (d)'s first request with its LU and pre-polish references
+and a float32 ``make_solver`` solve, in one file per checkout (copy this
 script into an older checkout first):
 
     python3 chip_smoke.py --snapshot a.pt
     python3 chip_smoke.py --compare a.pt b.pt
 
-and their float32 rows timed on one card, the checkouts in turns:
+and the rows of PERF.md §6 (both profiles, with a chunk update and a
+solve of each, the forward's device breakdown and busy share) timed on
+one card, the checkouts in turns:
 
-    python3 chip_smoke.py --time-f32 a.json
+    python3 chip_smoke.py --time-rows a.json
 """
 
 from __future__ import annotations
@@ -878,6 +887,23 @@ def device_time_by_kernel(fn, top=12):
     return dict(rows[:top]), sum(r["ms"] for r in agg.values())
 
 
+def busy_share(fn, top=12):
+    """One call of ``fn`` on the device: {device ms by CUDA kernel (the
+    ``top`` largest), device ms of all kernels, host wall ms of a call
+    ending in a synchronize (timed apart from the profiled one), busy
+    share = device ms / wall ms}."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_kernel, device = device_time_by_kernel(fn, top)
+    return dict(device_ms_by_kernel=by_kernel, device_ms=device,
+                wall_ms=wall, busy_share=device / wall)
+
+
 # The training kernels' phases: (f) the fast profile, (l) the float32 one.
 # fwd: (atol over max|ref|, rtol) of each forward output at J=6; leaf: each
 # gradient leaf's gap at J=6; leaf_j100: the backward on the plain streams
@@ -1018,6 +1044,8 @@ def phase_train_kernels(params, data, report, cdt="bfloat16"):
     del pstr
     breakdown, _ = device_time_by_kernel(
         lambda: tr.train_bwd_cuda(weights, dd, kstr, zero, d, d, **kw))
+    fwd_busy = busy_share(lambda: tr.train_fwd_cuda(weights, state, dd,
+                                                    **kw))
     # library yardsticks: one step's GEMMs in the compute dtype, J times
     wdt = kstr[0].dtype
     Hk = kstr[0][0].reshape(M, h)
@@ -1072,7 +1100,11 @@ def phase_train_kernels(params, data, report, cdt="bfloat16"):
                              f"H_kᵀ·dpre (bwd): a yardstick of the GEMMs, "
                              f"not of the kernels"),
                max_memory_allocated_bytes=peak,
-               bwd_device_ms_by_kernel=breakdown)
+               bwd_device_ms_by_kernel=breakdown,
+               fwd_device_ms_by_kernel=fwd_busy["device_ms_by_kernel"],
+               fwd_device_ms=fwd_busy["device_ms"],
+               fwd_wall_ms=fwd_busy["wall_ms"],
+               fwd_busy_share=fwd_busy["busy_share"])
     say(prof["tag"], **row)
     report[prof["key"]] = row
 
@@ -1212,6 +1244,85 @@ def phase_gemm_cores(report):
             torch.cuda.empty_cache()
     say("f gemm cores", **rows)
     report["gemm_cores"] = rows
+
+
+# The KKT pass alone: the (dtype, B) points of its predictions (PERF.md)
+KKT_POINTS = (("bfloat16", 2), ("bfloat16", 8), ("bfloat16", 16),
+              ("float32", 2), ("float32", 8), ("float32", 16))
+KKT_TOL = 1e-5   # of max|ref|: float32 sums in another order
+
+
+def phase_kkt_pass(report):
+    """[kkt pass]: the KKT pass every iteration runs (kernels/kkt_pass.py)
+    at n = 1000, m = 1000, at KKT_POINTS, with one and two right-hand
+    sides: against its plain version to KKT_TOL of max|ref|, two sides
+    bitwise what one gives; its device time (launches queued behind a
+    sleep: the wrapper's host cost hidden) beside the time of one read of
+    [Q; A0] from memory, its bound, its plain version and a torch.bmm
+    yardstick (the stacked product [wt; wb]ᵀ·[Q; A0] and A0·wt, two bmm
+    in the data's dtype)."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds
+    from iadmm_tpu_torch.kernels.kkt_pass import kkt_pass, kkt_pass_plain
+    n, m = N_VAR, N_INEQ + N_EQ
+    launches0 = kkt_pass.launches
+    rows, err = [], 0.0
+    g = torch.Generator(device=DEV).manual_seed(21)
+    for dtype, B in KKT_POINTS:
+        dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        Q = torch.randn((B, n, n), device=DEV, generator=g)
+        Q = (0.5 * (Q + Q.transpose(1, 2))).to(dt)
+        A0 = torch.randn((B, m, n), device=DEV, generator=g).to(dt)
+        vecs = [torch.randn(sh, device=DEV, generator=g)
+                for sh in ((B, n), (B, m), (B, n), (B, m))]
+        two = kkt_pass(Q, A0, *vecs)
+        one = [kkt_pass(Q, A0, *vecs[2 * k:2 * k + 2])[0] for k in range(2)]
+        for k, (p, r) in enumerate(two):
+            rp, rr = kkt_pass_plain(Q, A0, *vecs[2 * k:2 * k + 2])
+            for nm, a, b in (("partial", p, rp), ("rowdot", r, rr)):
+                err = max(err, compare(f"kkt pass {dtype} B={B} {nm}", a, b,
+                                       KKT_TOL * float(b.abs().max()),
+                                       0.0)[0])
+            if not (torch.equal(p, one[k][0]) and torch.equal(r, one[k][1])):
+                raise PhaseError(f"kkt pass {dtype} B={B}: side {k} of a "
+                                 f"two-sided pass differs from a one-sided")
+        del two, one
+        us_one = 1e3 * queued_ms(lambda: kkt_pass(Q, A0, *vecs[:2]))
+        us_two = 1e3 * queued_ms(lambda: kkt_pass(Q, A0, *vecs))
+        plain_us = 1e3 * cuda_ms(lambda: kkt_pass_plain(Q, A0, *vecs[:2]),
+                                 reps=5)
+        stacked = torch.cat([Q, A0], 1)
+        w = torch.cat(vecs[:2], 1).to(dt)[:, None, :]
+        wt = vecs[0].to(dt)[..., None]
+        lib_us = 1e3 * queued_ms(lambda: (torch.bmm(w, stacked),
+                                          torch.bmm(A0, wt)))
+        del stacked
+        b1, by1 = bounds.kkt_pass(B, n, m, dtype)
+        b2, _ = bounds.kkt_pass(B, n, m, dtype, nv=2)
+        cb = 2 if dtype == "bfloat16" else 4
+        rows.append(dict(dtype=dtype, B=B, us=us_one, two_sides_us=us_two,
+                         two_over_one=us_two / us_one,
+                         one_read_hbm_us=B * (n + m) * n * cb / 3.35e12 * 1e6,
+                         bound_us=1e3 * b1, two_sides_bound_us=1e3 * b2,
+                         bound_by=by1, plain_us=plain_us,
+                         library_us=lib_us,
+                         l2_resident=B * (n + m) * n * cb < 50e6))
+        del Q, A0, vecs
+    torch.cuda.empty_cache()
+    row = dict(shape=dict(n=n, m=m), points=rows, max_abs_err=err,
+               tol=(f"{KKT_TOL:g}·max|ref| per output (partials, row dots) "
+                    f"against kkt_pass_plain, one and two sides; a two-sided "
+                    f"pass bitwise two one-sided ones"),
+               launches=kkt_pass.launches - launches0,
+               timing=("device µs a pass, 50 launches queued behind a "
+                       "sleep; where the data fit the 50 MB L2 "
+                       "(l2_resident) the pass may beat one read from "
+                       "memory"),
+               library_note=("yardstick: torch.bmm of [wt; wb]ᵀ by the "
+                             "stacked [Q; A0] and of A0 by wt, in the data's "
+                             "dtype (no chunk partials)"))
+    say("kkt pass", **row)
+    report["kkt_pass"] = row
 
 
 def phase_train(report):
@@ -1880,24 +1991,32 @@ SEG_DIR = os.path.join(ROOT, "results", "chip_smoke_seg")
 
 def seg_forward(weights, state, dd, J, seg, cdt, plain=False):
     """The segment forward over a J-step chunk from ``state``, as
-    make_fused_chunk_loss runs it: (pr, dr, final, checkpoints)."""
+    make_fused_chunk_loss runs it (each call taking the loss its previous
+    call left; a checkout whose wrapper has no such argument, as one
+    copied in for ``--snapshot``, runs each call on its own):
+    (pr, dr, final, checkpoints)."""
+    import inspect
     import torch
     from iadmm_tpu_torch.kernels import train_rollout as tr
     kw = dict(sigma=SIGMA, compute_dtype=cdt)
     B = state[0].shape[0]
     ckpts, parts = [], []
     losses = tuple(torch.empty((B, J), device=DEV) for _ in range(2))
-    for s in range(J // seg):
+    fold = "pending" in inspect.signature(tr.train_fwd_seg_cuda).parameters
+    n_segs = J // seg
+    for s in range(n_segs):
         ckpts.append(state)
         if plain:
             pr, dr, state = tr.train_fwd_seg_plain(weights, state, dd,
                                                    t0=s * seg, J=seg, **kw)
             parts.append((pr, dr))
         else:
+            order = (dict(pending=s > 0, close=s == n_segs - 1) if fold
+                     else {})
             *_, state = tr.train_fwd_seg_cuda(weights, state, dd,
                                               t0=s * seg, J=seg,
                                               losses=losses, col=s * seg,
-                                              **kw)
+                                              **order, **kw)
     if plain:
         losses = tuple(torch.cat(v, 1) for v in zip(*parts))
     return (*losses, state, ckpts)
@@ -2037,6 +2156,11 @@ def phase_seg_kernels(params, data, data16, report, cdt="bfloat16"):
         out = dict(B=Bb)
         out["fwd_ms"] = cuda_ms(lambda: seg_forward(w, st, dat, J, SEG_LEN,
                                                     cdt), reps=reps)
+        busy = busy_share(lambda: seg_forward(w, st, dat, J, SEG_LEN, cdt))
+        out.update(fwd_device_ms_by_kernel=busy["device_ms_by_kernel"],
+                   fwd_device_ms=busy["device_ms"],
+                   fwd_wall_ms=busy["wall_ms"],
+                   fwd_busy_share=busy["busy_share"])
         *_, fin, ck = seg_forward(w, st, dat, J, SEG_LEN, cdt)
         z0 = tuple(torch.zeros_like(f) for f in fin)
         out["bwd_ms"] = cuda_ms(lambda: seg_backward(w, ck, dat, z0, dJ,
@@ -2710,6 +2834,20 @@ def snapshot(path):
     del ckpts
     out["train_fwd_seg f32 J=6"] = (pr, dr, *final)
     out["train_bwd_seg f32 J=6"] = (*acc[0], *acc[1])
+    # the J=100 forward at both profiles; one segment call at B=16
+    for cdt in ("bfloat16", "float32"):
+        pr, dr, final, _ = ttr.train_fwd_cuda(w, st, dd, t0=0, J=K_ITERS,
+                                              sigma=SIGMA, compute_dtype=cdt)
+        out[f"train_fwd {cdt} J=100"] = (pr, dr, *final)
+        del final
+    torch.cuda.empty_cache()
+    w16, st16, dd16 = train_inputs(params, scale_batch(
+        qp_batch(SEG_BATCH, seed=5))[0])
+    pr, dr, final = ttr.train_fwd_seg_cuda(w16, st16, dd16, t0=0, J=SEG_LEN,
+                                           sigma=SIGMA)
+    out[f"train_fwd_seg bf16 B={SEG_BATCH}"] = (pr, dr, *final)
+    del w16, st16, dd16, final
+    torch.cuda.empty_cache()
     kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
               feas_rest_num=POLISH_STEPS, sigma=SIGMA, use_pallas=True,
               gate_dtype="bfloat16", matvec_mode="bf16",
@@ -2730,68 +2868,133 @@ def snapshot(path):
     return 0
 
 
-def time_f32(path):
-    """Time this checkout's float32 rows (the cell at B=8 with both state
-    dtypes, the stream pair at B=2 and the segment pair at B=16 over J=100,
-    a fused and a step chunk update, three float32 solves) and write them
-    to ``path`` as JSON: run in two checkouts, in turns, to compare them on
-    one card."""
+def time_rows(path):
+    """Time this checkout's rows of the PERF.md §6 table at its shapes and
+    write them to ``path`` as JSON: the cell (1, 1f), the rollout (2),
+    Stage II 'kkt', 'direct', 'cg' (3, 3d, 3c), the stream pair at B=2 (4,
+    4f, 5, 5f) and the segment pair at B=16 (6, 6f, 7, 7f) over J=100, a
+    fused chunk update at B=2 at both profiles (three in a row), solves
+    of B=8 at both profiles (three requests, twice), and the forward's
+    device breakdown and busy share.  Run in
+    two checkouts, in turns, to compare them on one card."""
     import torch
     from iadmm_tpu_torch.api import make_solver
     from iadmm_tpu_torch.kernels import _build
     from iadmm_tpu_torch.kernels import lstm_cell as lc
+    from iadmm_tpu_torch.kernels import rollout_kernel as rk
+    from iadmm_tpu_torch.kernels import stage2_kernel as s2
     from iadmm_tpu_torch.kernels import train_rollout as tr
+    from iadmm_tpu_torch.kernels.train_rollout import make_fused_chunk_loss
     from iadmm_tpu_torch.scaling import scale_batch
     from iadmm_tpu_torch.solvers.cells import lstm_init
+    from iadmm_tpu_torch.solvers.step import _schedules
+    from iadmm_tpu_torch.train.harness import make_optimizer, \
+        make_train_chunk
+    from iadmm_tpu_torch.types import IterState, init_state
     _build.build_all()
     out = dict(card=torch.cuda.get_device_name(0))
     params = lstm_init(torch.Generator().manual_seed(0), 2, HIDDEN, K_ITERS,
                        device="cuda")
     g = torch.Generator().manual_seed(13)
     S0 = N_VAR + N_INEQ + N_EQ
-    for hc in (torch.float32, torch.bfloat16):
-        keys, x, H, C = cell_case(params, SERVE_BATCH, S0, HIDDEN, hc, g)
-        out[f"cell_ms_{str(hc)[6:]}_state"] = cuda_ms(
-            lambda: lc.cell_forward(*keys, x, H, C, "float32"), reps=20)
+    for gate, key in (("bfloat16", "1"), ("float32", "1f")):
+        keys, x, H, C = cell_case(params, SERVE_BATCH, S0, HIDDEN,
+                                  torch.float32, g)
+        out[f"{key} cell"] = cuda_ms(
+            lambda: lc.cell_forward(*keys, x, H, C, gate), reps=20)
         del keys, x, H, C
-    scaled, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
-    w, st, dd = train_inputs(params, scaled)
-    kw = dict(t0=0, J=K_ITERS, sigma=SIGMA, compute_dtype="float32")
-    out["train_fwd_ms"] = cuda_ms(lambda: tr.train_fwd_cuda(w, st, dd, **kw),
-                                  reps=3)
-    pr, _, fin, streams = tr.train_fwd_cuda(w, st, dd, **kw)
-    z0 = tuple(torch.zeros_like(f) for f in fin)
-    dJ = torch.full(pr.shape, 1.0 / (pr.shape[0] * K_ITERS), device=DEV)
-    out["train_bwd_ms"] = cuda_ms(lambda: tr.train_bwd_cuda(
-        w, dd, streams, z0, dJ, dJ, **kw), reps=3)
-    del streams
+    # serving: the rollout, then Stage II from its iterates
+    data = qp_batch(SERVE_BATCH, seed=1)
+    scaled, sc = scale_batch(data)
+    out["2 rollout"] = cuda_ms(lambda: rk.fused_rollout(
+        params, scaled, hidden=HIDDEN, K=K_ITERS, sigma=SIGMA), reps=3)
+    x, y, z = rk.fused_rollout(params, scaled, hidden=HIDDEN, K=K_ITERS,
+                               sigma=SIGMA)
+    st2 = IterState(x=sc.unscale_x(x), y=sc.unscale_y(y), z=sc.unscale_z(z),
+                    xv=torch.cat([x, y], -1), H=x.new_zeros((8, 1, 1)),
+                    C=x.new_zeros((8, 1, 1)))
+    rho_vec, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
+    rho = rho_vec.float() * torch.ones_like(data.zl)
+    N = POLISH_STEPS
+    for key, form, fn, kw in (
+            ("3 stage2 kkt", s2.kkt_inverse, s2.stage2_cuda,
+             dict(refine=0)),
+            ("3d stage2 direct", s2.direct_inverse, s2.stage2_direct_cuda,
+             dict(refine=DIRECT_REFINE)),
+            ("3c stage2 cg", s2.cg_diag, s2.stage2_cg_cuda,
+             dict(cg_iters=CG_ITERS, tol=1e-8))):
+        op = form(data, rho, SIGMA)
+        out[key] = cuda_ms(lambda: fn(st2, data, rho, op, num_iters=N,
+                                      sigma=SIGMA, **kw), reps=2)
+        del op
     torch.cuda.empty_cache()
+    # training: the stream pair at B=2, the segment pair at B=16
+    sc2, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
+    w, st, dd = train_inputs(params, sc2)
+    for cdt, f in (("bfloat16", ""), ("float32", "f")):
+        kw = dict(t0=0, J=K_ITERS, sigma=SIGMA, compute_dtype=cdt)
+        out[f"4{f} train_fwd"] = cuda_ms(
+            lambda: tr.train_fwd_cuda(w, st, dd, **kw), reps=3)
+        out[f"4{f} train_fwd busy"] = busy_share(
+            lambda: tr.train_fwd_cuda(w, st, dd, **kw))
+        pr, _, fin, streams = tr.train_fwd_cuda(w, st, dd, **kw)
+        z0 = tuple(torch.zeros_like(t) for t in fin)
+        dJ = torch.full(pr.shape, 1.0 / (pr.shape[0] * K_ITERS), device=DEV)
+        out[f"5{f} train_bwd"] = cuda_ms(lambda: tr.train_bwd_cuda(
+            w, dd, streams, z0, dJ, dJ, **kw), reps=3)
+        del streams, fin
+        torch.cuda.empty_cache()
     w16, st16, dd16 = train_inputs(params, scale_batch(
         qp_batch(SEG_BATCH, seed=5))[0])
-    out["seg_fwd_B16_ms"] = cuda_ms(lambda: seg_forward(
-        w16, st16, dd16, K_ITERS, SEG_LEN, "float32"), reps=2)
-    pr, _, fin, ck = seg_forward(w16, st16, dd16, K_ITERS, SEG_LEN,
-                                 "float32")
-    z0 = tuple(torch.zeros_like(f) for f in fin)
-    dJ = torch.full(pr.shape, 1.0 / (pr.shape[0] * K_ITERS), device=DEV)
-    out["seg_bwd_B16_ms"] = cuda_ms(lambda: seg_backward(
-        w16, ck, dd16, z0, dJ, SEG_LEN, "float32"), reps=2)
-    del ck, w16, st16, dd16
-    torch.cuda.empty_cache()
-    report = {}
-    phase_step_vs_fused(params, scaled, report, "float32")
-    out["chunk_update_ms"] = report["step_vs_fused_f32"]["chunk_update_ms"]
-    solve = make_solver(params, hidden_dim=HIDDEN, num_iters=K_ITERS,
-                        feas_rest_num=POLISH_STEPS, sigma=SIGMA,
-                        use_pallas=True)
-    out["serve_solve_ms"] = []
-    for r in range(3):
-        req = qp_batch(SERVE_BATCH, seed=100 + r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve(req)
-        torch.cuda.synchronize()
-        out["serve_solve_ms"].append((time.perf_counter() - t0) * 1e3)
+    for cdt, f in (("bfloat16", ""), ("float32", "f")):
+        out[f"6{f} seg fwd B=16"] = cuda_ms(lambda: seg_forward(
+            w16, st16, dd16, K_ITERS, SEG_LEN, cdt), reps=2)
+        pr, _, fin, ck = seg_forward(w16, st16, dd16, K_ITERS, SEG_LEN, cdt)
+        z0 = tuple(torch.zeros_like(t) for t in fin)
+        dJ = torch.full(pr.shape, 1.0 / (pr.shape[0] * K_ITERS), device=DEV)
+        out[f"7{f} seg bwd B=16"] = cuda_ms(lambda: seg_backward(
+            w16, ck, dd16, z0, dJ, SEG_LEN, cdt), reps=2)
+        del ck, fin
+        torch.cuda.empty_cache()
+    del w16, st16, dd16
+    # a fused chunk update (fwd + bwd + Adam) at B=2, three in a row
+    B, n = sc2.p.shape
+    m = sc2.num_constr
+    for cdt in ("bfloat16", "float32"):
+        fused = make_fused_chunk_loss(num_var=n, num_constr=m, batch=B,
+                                      hidden=HIDDEN, sigma=SIGMA,
+                                      chunk_len=K_ITERS, outer_T=K_ITERS,
+                                      K_total=K_ITERS, compute_dtype=cdt)
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        s0 = init_state(B, n, m, HIDDEN, device=DEV)
+        body = make_train_chunk(None, make_optimizer(p, 5e-5), K_ITERS,
+                                K_ITERS, SIGMA, loss_fn=fused)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            body(p, s0, sc2, 0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"chunk update {cdt}"] = times
+    # solves of B=8: the fast profile ('fused' rollout and Stage II) and
+    # the float32 one (step route over the float32 cell)
+    kw = dict(hidden_dim=HIDDEN, num_iters=K_ITERS,
+              feas_rest_num=POLISH_STEPS, sigma=SIGMA, use_pallas=True)
+    for name, extra in (("solve bfloat16", dict(
+            gate_dtype="bfloat16", matvec_mode="bf16", stage2_impl="fused",
+            rollout_impl="fused")), ("solve float32", {})):
+        solve = make_solver(params, **kw, **extra)
+        times = []
+        for r in range(6):   # the three requests twice
+            req = qp_batch(SERVE_BATCH, seed=100 + r % 3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(req)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)
@@ -2836,10 +3039,10 @@ def main(argv=()) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv:
-        modes = {"--snapshot": snapshot, "--time-f32": time_f32}
+        modes = {"--snapshot": snapshot, "--time-rows": time_rows}
         if argv[0] not in modes or len(argv) != 2:
             print("usage: chip_smoke.py [--snapshot OUT | --compare A B | "
-                  "--time-f32 OUT]", file=sys.stderr)
+                  "--time-rows OUT]", file=sys.stderr)
             return 2
         return modes[argv[0]](argv[1])
     say("setup", torch=torch.__version__, cuda=torch.version.cuda,
@@ -2890,6 +3093,7 @@ def main(argv=()) -> int:
     phase_train_kernels(params, scaled_t, report)
     phase_train_ragged(report)
     phase_gemm_cores(report)
+    phase_kkt_pass(report)
     g = phase_train(report)
     cell_all += g["cell"]
     say("training path launches", **g)

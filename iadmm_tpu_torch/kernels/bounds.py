@@ -6,8 +6,8 @@ prints the bounds of the TPU kernels the port has not ported yet (none are
 left).  ``chip_smoke.py`` computes the ported kernels' bounds from the
 inputs of its run with :func:`cell`, :func:`train_fwd`, :func:`train_bwd`,
 :func:`train_fwd_seg`, :func:`train_bwd_seg` (each at the bf16 or the
-float32 profile), :func:`stage2` (each solver), :func:`bsr_matvec` and
-``bound_ms``.
+float32 profile), :func:`stage2` (each solver), :func:`bsr_matvec`,
+:func:`kkt_pass` (the KKT pass those kernels run, alone) and ``bound_ms``.
 
 A bound is the larger of two times: the bytes the work must move (each
 input read once, each output written once) over the memory rate, and its
@@ -161,6 +161,20 @@ def stage2(B, N, n, m, solver="kkt", cg_iters=100, refine=None):
     nbytes = 4 * B * (operand + n * n + m * n + (2 * n + 4 * m)
                       + (2 * n + 2 * m + 2 * N))
     return bound_ms(nbytes, f32_ops=N * B * (solve + rest))
+
+
+def kkt_pass(B, n, m, dtype="bfloat16", nv=1):
+    """Bound of one KKT pass (``kernels/kkt_pass.py``) over B instances
+    with ``nv`` right-hand sides: Q (B,n,n) and A0 (B,m,n) in ``dtype``
+    read once, each side's float32 wt (B,n) and wb (B,m) read and its
+    partials (B, chunks of 32 rows, n) and row dots (B,m) written; per side
+    2 operations an element of [Q; A0] and 2 of A0, float32 FMA on the CUDA
+    cores.  Bytes bound it at every shape the port runs."""
+    chunks = -(-(n + m) // 32)
+    nbytes = (B * (n + m) * n * _nbytes(dtype)
+              + nv * B * 4 * ((n + m) + chunks * n + m))
+    return bound_ms(nbytes, f32_ops=nv * B * (2.0 * (n + m) * n
+                                              + 2.0 * m * n))
 
 
 def stored_tiles(vals) -> int:

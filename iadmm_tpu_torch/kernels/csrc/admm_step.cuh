@@ -12,7 +12,10 @@
 //
 // The host functions at the end launch these in the iteration's order:
 // kkt_apply (out = Ã·v), features (r and g), iteration (features, the cell
-// GEMM of cell_gemm.cuh, the update).  They are templates on T, the type of
+// GEMM of cell_gemm.cuh, the update).  The training forward also hands
+// features a Loss: its first pass then carries the previous step's loss
+// vectors (x, y) as a second right-hand side, and finish_kernel writes
+// their loss vectors beside r.  They are templates on T, the type of
 // the problem data and the cell weights: bf16 (the fast profile: every
 // vector rounded to bf16 before a matvec, the wgmma cell GEMM, bf16 H) or
 // float (the float32 profile: nothing rounded, FFMA cell GEMM, float32 H).
@@ -26,8 +29,19 @@
 namespace iadmm {
 namespace admm {
 
+// Element s of instance b of the loss vectors of the state (x, y, z) from
+// the pass over (x, y): v2 = Q·x + A0ᵀ·y + p (s < n), v1 = A0·x − z.
+__device__ __forceinline__ float loss_vec(const float* partial,
+                                          const float* rowdot, int nchunks,
+                                          const float* p, const float* z,
+                                          int b, int s, int n, int m) {
+  if (s < n) return kkt::sum_partials(partial, b, nchunks, n, s) + p[b * n + s];
+  return rowdot[b * m + (s - n)] - z[b * m + (s - n)];
+}
+
 // v: the vector the colpass consumed, (B, n+m).  x, y, z, p are read in
-// pass 1 only.
+// pass 1 only.  lv, when not null (pass 1): the loss vectors of (x, y, z)
+// from lpart / lrow, the pass's second right-hand side, (B, n+m).
 __global__ void finish_kernel(int pass, const float* __restrict__ partial,
                               const float* __restrict__ rowdot, int nchunks,
                               const float* __restrict__ v,
@@ -38,7 +52,10 @@ __global__ void finish_kernel(int pass, const float* __restrict__ partial,
                               const float* __restrict__ rho_raw,
                               const float* __restrict__ rhom, int t,
                               float sigma, float* __restrict__ out, int n,
-                              int m, int B) {
+                              int m, int B,
+                              const float* __restrict__ lpart,
+                              const float* __restrict__ lrow,
+                              float* __restrict__ lv) {
   const int S = n + m;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= B * S) return;
@@ -54,6 +71,7 @@ __global__ void finish_kernel(int pass, const float* __restrict__ partial,
     if (pass == 1) bot -= z[k] - y[k] / rho;
     out[idx] = bot;
   }
+  if (lv) lv[idx] = loss_vec(lpart, lrow, nchunks, p, z, b, s, n, m);
 }
 
 // Reads xv, x, y, z of the iteration's start from the *_in pointers and
@@ -133,6 +151,13 @@ struct KktScratch {
   float* rowdot;
 };
 
+// The pending loss that an iteration's first pass carries: the pass over
+// the iteration's own (x, y) into ks, the loss vectors into lv (B, n+m).
+struct Loss {
+  KktScratch ks;
+  float* lv;
+};
+
 // out = Ã·v at schedule index t; v, out (B, n+m).
 template <typename T>
 inline void kkt_apply(const Problem& P, int t, const float* v, float* out,
@@ -142,21 +167,34 @@ inline void kkt_apply(const Problem& P, int t, const float* v, float* out,
                              ks.rowdot, P.n, P.m, P.B, s);
   finish_kernel<<<eblocks(P.B * S), 256, 0, s>>>(
       2, ks.partial, ks.rowdot, kkt::n_chunks(P.n, P.m), v, nullptr, nullptr,
-      nullptr, nullptr, P.rho_raw, P.rhom, t, P.sigma, out, P.n, P.m, P.B);
+      nullptr, nullptr, P.rho_raw, P.rhom, t, P.sigma, out, P.n, P.m, P.B,
+      nullptr, nullptr, nullptr);
 }
 
 // The KKT features of iteration t at the state (xv, x, y, z):
-// r = Ã·xv − b̃ and g = Ã·r, each (B, n+m).
+// r = Ã·xv − b̃ and g = Ã·r, each (B, n+m).  With a loss, the first pass
+// also reads [Q; A0] against (x, y) and the loss vectors of the state go
+// to loss->lv.
 template <typename T>
 inline void features(const Problem& P, int t, const float* xv,
                      const float* x, const float* y, const float* z, float* r,
-                     float* g, const KktScratch& ks, cudaStream_t s) {
+                     float* g, const KktScratch& ks, cudaStream_t s,
+                     const Loss* loss = nullptr) {
   const int S = P.n + P.m;
-  kkt::colpass<T, kRound<T>>(P.Q, P.A0, xv, S, xv + P.n, S, ks.partial,
-                             ks.rowdot, P.n, P.m, P.B, s);
+  const kkt::Rhs first{xv, S, xv + P.n, S, ks.partial, ks.rowdot};
+  if (loss)
+    kkt::colpass2<T, kRound<T>>(
+        P.Q, P.A0, first,
+        kkt::Rhs{x, P.n, y, P.m, loss->ks.partial, loss->ks.rowdot}, P.n,
+        P.m, P.B, s);
+  else
+    kkt::colpass<T, kRound<T>>(P.Q, P.A0, xv, S, xv + P.n, S, ks.partial,
+                               ks.rowdot, P.n, P.m, P.B, s);
   finish_kernel<<<eblocks(P.B * S), 256, 0, s>>>(
       1, ks.partial, ks.rowdot, kkt::n_chunks(P.n, P.m), xv, x, y, z, P.p,
-      P.rho_raw, P.rhom, t, P.sigma, r, P.n, P.m, P.B);
+      P.rho_raw, P.rhom, t, P.sigma, r, P.n, P.m, P.B,
+      loss ? loss->ks.partial : nullptr, loss ? loss->ks.rowdot : nullptr,
+      loss ? loss->lv : nullptr);
   kkt_apply<T>(P, t, r, g, ks, s);
 }
 
@@ -164,7 +202,8 @@ inline void features(const Problem& P, int t, const float* xv,
 // features, the cell GEMM (H in T, float32 C; H_f32, when not null, also
 // receives H' unrounded), the update.  The in and out vectors, and C and
 // C_out, may be the same (in place); H_out must not alias H.  r, g
-// (B, n+m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.
+// (B, n+m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.  loss:
+// as features.
 template <typename T>
 inline void iteration(const Problem& P, const Weights& w, int t,
                       const float* xv, const float* x, const float* y,
@@ -172,9 +211,10 @@ inline void iteration(const Problem& P, const Weights& w, int t,
                       float* xv_out, float* x_out, float* y_out,
                       float* z_out, void* H_out, void* C_out, float* H_f32,
                       float* r, float* g, float* cell_partial,
-                      const KktScratch& ks, cudaStream_t s) {
+                      const KktScratch& ks, cudaStream_t s,
+                      const Loss* loss = nullptr) {
   const int M = P.B * (P.n + P.m);
-  features<T>(P, t, xv, x, y, z, r, g, ks, s);
+  features<T>(P, t, xv, x, y, z, r, g, ks, s, loss);
   cell::launch<T, T, float>(xv, g, 1, 0, H, C, w.W, w.Ut, w.b, w.Wh,
                             H_out, C_out, cell_partial, M, w.h, s, H_f32);
   update_kernel<<<eblocks(M), 256, 0, s>>>(

@@ -3,7 +3,7 @@
 // Replaces iadmm_tpu/kernels/rollout_kernel.py::_rollout_kernel (driven
 // there by fused_rollout).  The TPU kernel runs all K iterations of one
 // instance per grid step with Q, A0 and the state resident in VMEM; 2 MB of
-// Q and 1 MB of A0 per instance (bf16, n = m = 1000) do not fit in the
+// Q and 2 MB of A0 per instance (bf16, n = m = 1000) do not fit in the
 // 227 KB of shared memory of an SM, and a grid of B CTAs would use 8 of 132
 // SMs.  Here the host loops over K and each iteration is six launches that
 // spread every instance over many CTAs (admm::iteration, admm_step.cuh):
@@ -15,12 +15,13 @@
 //                         partials        (cell_gemm.cuh: wgmma, TMA ring)
 //   6. update             delta = Σ partials + b_h, xv ← xv − delta, then
 //                         the x/z/y update
-// The matrices stay in L2 between passes (24 MB of bf16 data at B = 8).
+// The matrices stay in L2 between passes (32 MB of bf16 data at B = 8).
 //
 // Bound on the H100: the gate GEMM, 2·B·(n+m)·h·4h operations a step
-// (82 GFLOP at B = 8, h = 800: 83 µs at 989 TFLOP/s); the KKT passes read
-// 4 x 3 MB of bf16 data per instance and step, which the L2 serves.  U is
-// re-laid for the cell GEMM (Ut) once per rollout, by the wrapper.
+// (82 GFLOP at B = 8, h = 800: 83 µs at 989 TFLOP/s); the two KKT passes
+// read 2 x 4 MB of bf16 data per instance and step (kkt_matvec.cuh), which
+// the L2 serves.  U is re-laid for the cell GEMM (Ut) once per rollout, by
+// the wrapper.
 //
 // Numerics follow the TPU kernel: every vector is rounded to bf16 before
 // each matvec (rollout_kernel.py:78-91); the x·W term is float32 xv and g

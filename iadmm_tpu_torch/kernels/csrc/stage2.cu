@@ -202,7 +202,9 @@ __global__ void norms_kernel(const float* __restrict__ partial,
 // kkt::ROWS rows of A0, with w = scale∘u − shift (shift may be null).  Each
 // element of A0 is read once, neighbouring threads on neighbouring columns;
 // the consumer sums the chunks in order (kkt::sum_partials).
-__global__ void __launch_bounds__(kkt::THREADS)
+constexpr int AT_THREADS = 256;
+
+__global__ void __launch_bounds__(AT_THREADS)
     atpass_kernel(const float* __restrict__ A0, const float* __restrict__ u,
                   const float* __restrict__ scale,
                   const float* __restrict__ shift,
@@ -235,7 +237,7 @@ inline int at_chunks(int m) { return (m + kkt::ROWS - 1) / kkt::ROWS; }
 inline void atpass(const float* A0, const float* u, const float* scale,
                    const float* shift, float* partial, int n, int m, int B,
                    cudaStream_t s) {
-  atpass_kernel<<<dim3(at_chunks(m), B), kkt::THREADS, 0, s>>>(
+  atpass_kernel<<<dim3(at_chunks(m), B), AT_THREADS, 0, s>>>(
       A0, u, scale, shift, partial, n, m, at_chunks(m));
 }
 

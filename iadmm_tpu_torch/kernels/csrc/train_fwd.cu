@@ -1,19 +1,32 @@
-// One learned ADMM iteration of a TBPTT training chunk, forward, for Hopper
-// (sm_90a), with the per-step losses and the state streams the backward
-// reads.
+// The learned ADMM iterations of a TBPTT training chunk, forward, for
+// Hopper (sm_90a), with the per-step losses and the state streams the
+// backward reads.
 //
 // Replaces iadmm_tpu/kernels/train_rollout.py::_fwd_stream_kernel (built by
 // make_fused_chunk_loss(stream=True)).  The TPU kernel runs the J steps of
 // one instance per grid step with Q, A0 and the recurrent state in VMEM and
-// DMAs every pre-step state to HBM.  As in rollout.cu, the host loops here:
-// one call per step k of the chunk (schedule index t = t0 + k), launching
+// DMAs every pre-step state to HBM.  Here one call runs the J steps of the
+// chunk from C++ (iadmm_train_fwd_chunk), step k (schedule index t0 + k)
+// launching
 //   1-6. admm::iteration         the rollout's six launches, from slot k to
 //                                slot k+1 (admm_step.cuh): r = Ã·xv − b̃,
 //                                g = Ã·r, the cell GEMM (gates, C', H',
-//                                delta partials), the xv, x, y, z update
-//   7.   colpass(x', y')         A0·x', Q·x' + A0ᵀ·y'
-//   8.   loss                    pr[b,c] = ‖A0x' − z'‖, dr[b,c] = ‖Qx' + p + A0ᵀy'‖
-//                                at the step's loss column c (c = k here)
+//                                delta partials), the xv, x, y, z update;
+//                                from k = 1 the pass of step 1 also reads
+//                                [Q; A0] against (x_k, y_k), the state that
+//                                step k−1 wrote, and finish forms its loss
+//                                vectors v1 = A0·x_k − z_k and
+//                                v2 = Q·x_k + A0ᵀ·y_k + p (kkt_matvec.cuh's
+//                                second right-hand side)
+// and after the last step
+//   7.   colpass(x_J, y_J), loss_vec   the last step's loss vectors
+//   8.   loss                          pr[b,c] = ‖v1‖, dr[b,c] = ‖v2‖ for
+//                                      every column c of the call at once
+// So [Q; A0] is read twice a step, not three times: the loss pass of step
+// k−1 and the features pass of step k share one read (the sums of each
+// right-hand side keep their order, so the losses are those of a pass of
+// their own, bit for bit).  The loss vectors of the call's steps wait in
+// lv, one (B, n+m) slab a column.
 //
 // Two compute dtypes (the entry point's f32 flag), as the TPU kernel's
 // compute_dtype: bf16 (Q, A0, W, U, W_h in bf16, every vector rounded to
@@ -38,15 +51,20 @@
 // Bound on the H100 at B=2, S=2000, h=800, J=100: the gate GEMM,
 // J·2·B·S·h·4h = 2.05 TFLOP, 2.07 ms at 989 TFLOP/s (bf16) or 30.6 ms at 67
 // TFLOP/s (float32), against 1.92 GB (bf16 H) or 2.56 GB (float32 H) of
-// stream writes (0.57 / 0.76 ms at 3.35 TB/s): operations.
+// stream writes (0.57 / 0.76 ms at 3.35 TB/s): operations.  Beside the
+// GEMM, a step reads [Q; A0] twice (8 MB of bf16 at B = 2, which the L2
+// holds; 64 MB at B = 16, which it does not).
 //
 // iadmm_train_fwd_seg replaces _fwd_seg_kernel, the forward of the segment
 // route (make_fused_chunk_loss with stream=False, seg > 0, or streams over
 // IADMM_STREAM_HBM): the same steps over carries of two slots instead of
 // J+1, one call per segment of J steps, no stream written.  The wrapper
 // keeps each segment's start state (H and C in float32) as the checkpoint
-// that train_bwd.cu's segment entry point recomputes from.  Its bound is
-// the same GEMM operations as the stream forward's.
+// that train_bwd.cu's segment entry point recomputes from.  The loss pass
+// folds across calls too: a segment's first step carries the loss of the
+// previous segment's last step (its start state), and only the chunk's
+// last segment closes with a pass of its own.  Its bound is the same GEMM
+// operations as the stream forward's.
 
 #include "admm_step.cuh"
 
@@ -54,82 +72,115 @@ namespace {
 
 using namespace iadmm;
 
-// One CTA per instance: v1 = A0·x' − z', v2 = Q·x' + A0ᵀ·y' + p from the
-// colpass over (x', y'), then the two norms in a fixed order.
-__global__ void loss_kernel(const float* __restrict__ partial,
-                            const float* __restrict__ rowdot, int nchunks,
-                            const float* __restrict__ p,
-                            const float* __restrict__ z_new,
+// lv[c, b, :] = the loss vectors of the state (x, y, z) from the pass over
+// (x, y): admm::loss_vec for every element, one thread each.
+__global__ void loss_vec_kernel(const float* __restrict__ partial,
+                                const float* __restrict__ rowdot,
+                                int nchunks, const float* __restrict__ p,
+                                const float* __restrict__ z,
+                                float* __restrict__ lv, int n, int m, int B) {
+  const int S = n + m;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * S) return;
+  lv[idx] = admm::loss_vec(partial, rowdot, nchunks, p, z, idx / S, idx % S,
+                           n, m);
+}
+
+// One CTA per instance and loss column c (blockIdx.y) of lv (ncols, B,
+// n+m): pr[b, col0 + c] = ‖v1‖, dr[b, col0 + c] = ‖v2‖, each thread's
+// strided squares then block_sum (a fixed order).
+__global__ void loss_kernel(const float* __restrict__ lv, int col0, int L,
                             float* __restrict__ pr, float* __restrict__ dr,
-                            int col, int L, int n, int m) {
+                            int n, int m, int B) {
   __shared__ float scratch[33];
-  const int b = blockIdx.x;
+  const int b = blockIdx.x, c = blockIdx.y;
+  const float* v = lv + ((size_t)c * B + b) * (n + m);
   float s1 = 0.f, s2 = 0.f;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const float v1 = rowdot[b * m + i] - z_new[b * m + i];
+    const float v1 = v[n + i];
     s1 += v1 * v1;
   }
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float v2 = kkt::sum_partials(partial, b, nchunks, n, j) + p[b * n + j];
+    const float v2 = v[j];
     s2 += v2 * v2;
   }
   s1 = block_sum(s1, scratch);
   s2 = block_sum(s2, scratch);
   if (threadIdx.x == 0) {
-    pr[b * L + col] = sqrtf(s1);
-    dr[b * L + col] = sqrtf(s2);
+    pr[b * L + col0 + c] = sqrtf(s1);
+    dr[b * L + col0 + c] = sqrtf(s2);
   }
 }
 
-// Schedule index t from slot src of the carries to slot dst, the losses at
-// column col of the (B, L) pr, dr, with T data and weights (see the entry
-// points).
+// The buffers of a call (see the entry points).
+struct Bufs {
+  void *hs, *cs, *xs, *ys, *zs, *xvs, *H_final, *pr, *dr, *r, *g;
+  admm::KktScratch ks, ks2;
+  float* lv;
+  float* cell_partial;
+};
+
+// Steps i = 0 … nsteps−1 (schedule index t0 + i), from slot i to i + 1
+// of the streams or, with two_slots, from slot i mod 2 to the other one;
+// the last step's H' also goes to H_final.  Step i's loss lands at column
+// col + i of the (B, L) pr, dr.  pending: the start state's loss (column
+// col − 1) is still to be taken, by step 0's first pass; close: take the
+// last step's loss here (else the next call's step 0 does).  lv holds
+// nsteps + 1 slabs: column c in slab c − col + 1.
 template <typename T>
-void step(const admm::Problem& P, const admm::Weights& w,
-          const admm::KktScratch& ks, int t, int src, int dst, int col, int L,
-          void* hs, void* cs, void* xs, void* ys, void* zs, void* xvs,
-          void* H_final, void* pr, void* dr, void* r, void* g,
-          void* cell_partial, cudaStream_t s) {
+void run(const admm::Problem& P, const admm::Weights& w, const Bufs& f,
+         int t0, int nsteps, bool two_slots, int col, int L, bool pending,
+         bool close, cudaStream_t s) {
   const int B = P.B, n = P.n, m = P.m;
   const int M = B * (n + m);
   const size_t slab = (size_t)M * w.h;
-  float* xv_k = static_cast<float*>(xvs) + (size_t)src * M;
-  float* x_k = static_cast<float*>(xs) + (size_t)src * B * n;
-  float* y_k = static_cast<float*>(ys) + (size_t)src * B * m;
-  float* z_k = static_cast<float*>(zs) + (size_t)src * B * m;
-  float* xv_n = static_cast<float*>(xvs) + (size_t)dst * M;
-  float* x_n = static_cast<float*>(xs) + (size_t)dst * B * n;
-  float* y_n = static_cast<float*>(ys) + (size_t)dst * B * m;
-  float* z_n = static_cast<float*>(zs) + (size_t)dst * B * m;
-
-  admm::iteration<T>(P, w, t, xv_k, x_k, y_k, z_k,
-                     static_cast<const T*>(hs) + src * slab,
-                     static_cast<const float*>(cs) + src * slab, xv_n, x_n,
-                     y_n, z_n, static_cast<T*>(hs) + dst * slab,
-                     static_cast<float*>(cs) + dst * slab,
-                     static_cast<float*>(H_final), static_cast<float*>(r),
-                     static_cast<float*>(g),
-                     static_cast<float*>(cell_partial), ks, s);
-  kkt::colpass<T, admm::kRound<T>>(P.Q, P.A0, x_n, n, y_n, m, ks.partial,
-                                   ks.rowdot, n, m, B, s);
-  loss_kernel<<<B, 256, 0, s>>>(ks.partial, ks.rowdot, kkt::n_chunks(n, m),
-                                P.p, z_n, static_cast<float*>(pr),
-                                static_cast<float*>(dr), col, L, n, m);
+  auto at = [](void* base, int slot, size_t len) {
+    return static_cast<float*>(base) + (size_t)slot * len;
+  };
+  int dst = 0;
+  for (int i = 0; i < nsteps; ++i) {
+    const int src = two_slots ? (i & 1) : i;
+    dst = two_slots ? ((i + 1) & 1) : i + 1;
+    const admm::Loss loss{f.ks2, f.lv + (size_t)i * M};   // column col + i − 1
+    admm::iteration<T>(
+        P, w, t0 + i, at(f.xvs, src, M), at(f.xs, src, B * n),
+        at(f.ys, src, B * m), at(f.zs, src, B * m),
+        static_cast<const T*>(f.hs) + src * slab, at(f.cs, src, slab),
+        at(f.xvs, dst, M), at(f.xs, dst, B * n), at(f.ys, dst, B * m),
+        at(f.zs, dst, B * m), static_cast<T*>(f.hs) + dst * slab,
+        at(f.cs, dst, slab),
+        i == nsteps - 1 ? static_cast<float*>(f.H_final) : nullptr,
+        static_cast<float*>(f.r), static_cast<float*>(f.g), f.cell_partial,
+        f.ks, s, i > 0 || pending ? &loss : nullptr);
+  }
+  if (close) {
+    const float* x = at(f.xs, dst, B * n);
+    kkt::colpass<T, admm::kRound<T>>(P.Q, P.A0, x, n, at(f.ys, dst, B * m),
+                                     m, f.ks2.partial, f.ks2.rowdot, n, m, B,
+                                     s);
+    loss_vec_kernel<<<admm::eblocks(M), 256, 0, s>>>(
+        f.ks2.partial, f.ks2.rowdot, kkt::n_chunks(n, m), P.p,
+        at(f.zs, dst, B * m), f.lv + (size_t)nsteps * M, n, m, B);
+  }
+  const int first = pending ? 0 : 1;            // slabs of this call's
+  const int ncols = nsteps + (close ? 1 : 0) - first;   // columns
+  if (ncols > 0)
+    loss_kernel<<<dim3(B, ncols), 256, 0, s>>>(
+        f.lv + (size_t)first * M, col - 1 + first, L,
+        static_cast<float*>(f.pr), static_cast<float*>(f.dr), n, m, B);
 }
 
-// Steps i = 0 … nsteps−1 (schedule index t0 + i, losses at column col + i):
-// from slot k0 + i to k0 + i + 1 of the streams, or, with two_slots, from
-// slot i mod 2 to the other one; the last step's H' also goes to H_final
-// when it is not null.
-int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
-              const void* Q, const void* A0, const void* p, const void* zl,
-              const void* zu, const void* rhom, const void* rho_raw,
-              const void* alpha_raw, const void* W, const void* Ut,
-              const void* b, const void* Wh, const void* bh, void* hs,
-              void* cs, void* xs, void* ys, void* zs, void* xvs,
-              void* H_final, void* pr, void* dr, void* r, void* g,
-              void* mv_partial, void* rowdot, void* cell_partial, int B,
-              int n, int m, int h, int f32, float sigma, void* stream) {
+int run_steps(int t0, int nsteps, bool two_slots, int col, int L,
+              bool pending, bool close, const void* Q, const void* A0,
+              const void* p, const void* zl, const void* zu,
+              const void* rhom, const void* rho_raw, const void* alpha_raw,
+              const void* W, const void* Ut, const void* b, const void* Wh,
+              const void* bh, void* hs, void* cs, void* xs, void* ys,
+              void* zs, void* xvs, void* H_final, void* pr, void* dr,
+              void* r, void* g, void* mv_partial, void* rowdot,
+              void* mv_partial2, void* rowdot2, void* lv, void* cell_partial,
+              int B, int n, int m, int h, int f32, float sigma,
+              void* stream) {
   const admm::Problem P{Q,
                         A0,
                         static_cast<const float*>(p),
@@ -144,16 +195,18 @@ int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
                         sigma};
   const admm::Weights w{W, Ut, static_cast<const float*>(b), Wh,
                         static_cast<const float*>(bh), h};
-  const admm::KktScratch ks{static_cast<float*>(mv_partial),
-                            static_cast<float*>(rowdot)};
-  auto run = f32 ? &step<float> : &step<__nv_bfloat16>;
-  for (int i = 0; i < nsteps; ++i) {
-    const int src = two_slots ? (i & 1) : k0 + i;
-    const int dst = two_slots ? ((i + 1) & 1) : k0 + i + 1;
-    run(P, w, ks, t0 + i, src, dst, col + i, L, hs, cs, xs, ys, zs, xvs,
-        i == nsteps - 1 ? H_final : nullptr, pr, dr, r, g, cell_partial,
-        static_cast<cudaStream_t>(stream));
-  }
+  const Bufs f{hs, cs, xs, ys, zs, xvs, H_final, pr, dr, r, g,
+               admm::KktScratch{static_cast<float*>(mv_partial),
+                                static_cast<float*>(rowdot)},
+               admm::KktScratch{static_cast<float*>(mv_partial2),
+                                static_cast<float*>(rowdot2)},
+               static_cast<float*>(lv), static_cast<float*>(cell_partial)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    run<float>(P, w, f, t0, nsteps, two_slots, col, L, pending, close, s);
+  else
+    run<__nv_bfloat16>(P, w, f, t0, nsteps, two_slots, col, L, pending, close,
+                       s);
   return hop::last_error();
 }
 
@@ -161,28 +214,32 @@ int run_steps(int t0, int k0, int nsteps, bool two_slots, int col, int L,
 
 extern "C" {
 
-// Step k of the chunk (schedule index t).  Q (B,n,n), A0 (B,m,n), W (2,4h),
-// Wh (h,) bf16, and Ut, U (h,4h) re-laid for the bf16 cell GEMM
-// (cell_gemm.cuh); or all float32 when f32, Ut then U itself; p (B,n), zl,
-// zu, rhom (B,m), rho_raw/alpha_raw (K_total,), b (4h,), bh (1,) float32.
-// Streams as in the header (hs in the dtype of Q); slot k is read and slot
-// k+1 written.  H_final (B·S, h) float32 or null.  pr, dr (B, J) float32:
-// column k written.  r, g (B,n+m), mv_partial (B, ceil((n+m)/32), n),
-// rowdot (B,m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.
-int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
-                         const void* p, const void* zl, const void* zu,
-                         const void* rhom, const void* rho_raw,
-                         const void* alpha_raw, const void* W, const void* Ut,
-                         const void* b, const void* Wh, const void* bh,
-                         void* hs, void* cs, void* xs, void* ys, void* zs,
-                         void* xvs, void* H_final, void* pr, void* dr,
-                         void* r, void* g, void* mv_partial, void* rowdot,
-                         void* cell_partial, int B, int n, int m, int h,
-                         int J, int f32, float sigma, void* stream) {
-  return run_steps(t, k, 1, false, k, J, Q, A0, p, zl, zu, rhom, rho_raw,
-                   alpha_raw, W, Ut, b, Wh, bh, hs, cs, xs, ys, zs, xvs,
-                   H_final, pr, dr, r, g, mv_partial, rowdot, cell_partial, B,
-                   n, m, h, f32, sigma, stream);
+// The J steps of a chunk, schedule indices t0 … t0+J−1.  Q (B,n,n), A0
+// (B,m,n), W (2,4h), Wh (h,) bf16, and Ut, U (h,4h) re-laid for the bf16
+// cell GEMM (cell_gemm.cuh); or all float32 when f32, Ut then U itself;
+// p (B,n), zl, zu, rhom (B,m), rho_raw/alpha_raw (K_total,), b (4h,), bh
+// (1,) float32.  Streams as in the header (hs in the dtype of Q), slot 0
+// the start state; step k reads slot k and writes k+1.  H_final (B·S, h)
+// float32.  pr, dr (B, J) float32.  r, g (B,n+m), mv_partial and
+// mv_partial2 (B, ceil((n+m)/32), n), rowdot and rowdot2 (B,m), lv
+// (J+1, B, n+m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.
+int iadmm_train_fwd_chunk(int t0, const void* Q, const void* A0,
+                          const void* p, const void* zl, const void* zu,
+                          const void* rhom, const void* rho_raw,
+                          const void* alpha_raw, const void* W,
+                          const void* Ut, const void* b, const void* Wh,
+                          const void* bh, void* hs, void* cs, void* xs,
+                          void* ys, void* zs, void* xvs, void* H_final,
+                          void* pr, void* dr, void* r, void* g,
+                          void* mv_partial, void* rowdot, void* mv_partial2,
+                          void* rowdot2, void* lv, void* cell_partial, int B,
+                          int n, int m, int h, int J, int f32, float sigma,
+                          void* stream) {
+  return run_steps(t0, J, false, 0, J, false, true, Q, A0, p, zl, zu,
+                   rhom, rho_raw, alpha_raw, W, Ut, b, Wh, bh, hs, cs, xs,
+                   ys, zs, xvs, H_final, pr, dr, r, g, mv_partial, rowdot,
+                   mv_partial2, rowdot2, lv, cell_partial, B, n, m, h, f32,
+                   sigma, stream);
 }
 
 // Replaces _fwd_seg_kernel (train_rollout.py:147): one segment of J steps,
@@ -193,23 +250,28 @@ int iadmm_train_fwd_step(int k, int t, const void* Q, const void* A0,
 // other, so the final state is in slot J mod 2 and its H', unrounded, in
 // H_final (B·S, h) float32, as the TPU kernel writes out its float32 H
 // carry.  Step k's losses land at column col + k of pr, dr (B, L), the
-// chunk's, apart from the slot index.  The rest as in iadmm_train_fwd_step.
-// The launches are those of J calls of the stream entry point, so on the
-// same start state both routes give bitwise-equal states and losses.
-int iadmm_train_fwd_seg(int t0, int col, int L, const void* Q, const void* A0,
-                        const void* p, const void* zl, const void* zu,
-                        const void* rhom, const void* rho_raw,
-                        const void* alpha_raw, const void* W, const void* Ut,
-                        const void* b, const void* Wh, const void* bh,
-                        void* hs, void* cs, void* xs, void* ys, void* zs,
-                        void* xvs, void* H_final, void* pr, void* dr, void* r,
-                        void* g, void* mv_partial, void* rowdot,
-                        void* cell_partial, int B, int n, int m, int h, int J,
-                        int f32, float sigma, void* stream) {
-  return run_steps(t0, 0, J, true, col, L, Q, A0, p, zl, zu, rhom, rho_raw,
-                   alpha_raw, W, Ut, b, Wh, bh, hs, cs, xs, ys, zs, xvs,
-                   H_final, pr, dr, r, g, mv_partial, rowdot, cell_partial, B,
-                   n, m, h, f32, sigma, stream);
+// chunk's.  pending (col > 0): the previous segment left its last loss
+// (column col − 1) to this call, which takes it from the checkpoint;
+// close: this call takes its own last loss (the chunk's last segment).  lv
+// holds J+1 slabs.  The rest as in iadmm_train_fwd_chunk.  On the same
+// start state the two routes give bitwise-equal states and losses.
+int iadmm_train_fwd_seg(int t0, int col, int L, int pending, int close,
+                        const void* Q, const void* A0, const void* p,
+                        const void* zl, const void* zu, const void* rhom,
+                        const void* rho_raw, const void* alpha_raw,
+                        const void* W, const void* Ut, const void* b,
+                        const void* Wh, const void* bh, void* hs, void* cs,
+                        void* xs, void* ys, void* zs, void* xvs,
+                        void* H_final, void* pr, void* dr, void* r, void* g,
+                        void* mv_partial, void* rowdot, void* mv_partial2,
+                        void* rowdot2, void* lv, void* cell_partial, int B,
+                        int n, int m, int h, int J, int f32, float sigma,
+                        void* stream) {
+  return run_steps(t0, J, true, col, L, pending != 0, close != 0, Q, A0,
+                   p, zl, zu, rhom, rho_raw, alpha_raw, W, Ut, b, Wh, bh, hs,
+                   cs, xs, ys, zs, xvs, H_final, pr, dr, r, g, mv_partial,
+                   rowdot, mv_partial2, rowdot2, lv, cell_partial, B, n, m,
+                   h, f32, sigma, stream);
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@ Replaces both kernel pairs of ``iadmm_tpu/kernels/train_rollout.py``:
   per-step primal and dual residual losses, writing the per-step state
   streams) and ``_bwd_stream_kernel`` (the reverse sweep over those
   streams, no recompute of the forward).  On CUDA tensors
-  :func:`make_fused_chunk_loss` launches ``csrc/train_fwd.cu`` once per
-  step of the chunk and ``csrc/train_bwd.cu`` once per reverse step.
+  :func:`make_fused_chunk_loss` calls ``csrc/train_fwd.cu`` once a chunk
+  (its J steps run from C++) and ``csrc/train_bwd.cu`` once per reverse
+  step.
 - the segment-recompute pair, ``_fwd_seg_kernel`` (J steps from a
   checkpoint, no stream) and ``_bwd_seg_kernel`` (recompute the segment
   from its checkpoint, then the reverse sweep), taken where a chunk's
@@ -35,8 +36,9 @@ run every product in float32 FFMA (no TF32).  Q is taken as symmetric, as
 the TPU kernel's backward takes it (``Q·v`` is formed as ``vᵀQ``).
 Launches are counted per wrapper and compute dtype: ``.launches`` (bf16)
 and ``.launches_f32`` (float32) of ``train_fwd_cuda`` and
-``train_bwd_cuda`` (one a step) and of ``train_fwd_seg_cuda`` and
-``train_bwd_seg_cuda`` (one a segment).
+``train_bwd_cuda`` (one a step: the forward's one call a chunk counts its
+J steps) and of ``train_fwd_seg_cuda`` and ``train_bwd_seg_cuda`` (one a
+segment).
 
 Gradients flow to ``W, U, b, W_h, b_h, rho, alpha`` only; the state and the
 problem data get none, as ``_package_grads`` gives none.  The ``rho`` and
@@ -364,12 +366,13 @@ def train_bwd_seg_plain(weights, state, data, dfinal, dpr, ddr, *, t0: int,
 # CUDA wrappers
 # --------------------------------------------------------------------------
 
-_FWD_ARGS = ([_build.I] * 2 + [_build.P] * 27 + [_build.I] * 6
+_FWD_ARGS = ([_build.I] + [_build.P] * 30 + [_build.I] * 6
              + [_build.F, _build.P])
 _BWD_ARGS = ([_build.I] * 2 + [_build.P] * 53 + [_build.I] * 6
              + [_build.F, _build.P])
-# the segment entry points: t0, col, L first; the backward also takes b_h
-_FWD_SEG_ARGS = [_build.I] + _FWD_ARGS
+# the segment entry points: t0, col, L first (the forward then pending and
+# close); the backward also takes b_h
+_FWD_SEG_ARGS = [_build.I] * 4 + _FWD_ARGS
 _BWD_SEG_ARGS = ([_build.I] * 3 + [_build.P] * 54 + [_build.I] * 6
                  + [_build.F, _build.P])
 _GEMM_ARGS = ([_build.I] * 3 + [_build.P, _build.I] * 3 + [_build.I] * 3
@@ -452,15 +455,18 @@ def _carries(state, compute_dtype, slots):
     return tuple(out)
 
 
-def _fwd_scratch(B, n, m, h, dev):
-    """r, g, mv_partial, rowdot, cell_partial of the forward entry points."""
+def _fwd_scratch(B, n, m, h, J, dev):
+    """r, g, mv_partial, rowdot, mv_partial2, rowdot2 (the loss pass's
+    second right-hand side), lv (J+1 slabs of loss vectors), cell_partial
+    of the forward entry points."""
     S = n + m
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    return (empty(B, S), empty(B, S),
-            empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n),
-            empty(B, m), cell_scratch(B * S, h, dev))
+    chunks = (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS
+    return (empty(B, S), empty(B, S), empty(B, chunks, n), empty(B, m),
+            empty(B, chunks, n), empty(B, m), empty(J + 1, B, S),
+            cell_scratch(B * S, h, dev))
 
 
 def _bwd_scratch(B, n, m, h, compute_dtype, dev):
@@ -485,11 +491,11 @@ def _bwd_scratch(B, n, m, h, compute_dtype, dev):
                empty(n_mt, h)])                          # pdb pdw0 pdw1 pdwh
 
 
-def _count(fn, compute_dtype):
+def _count(fn, compute_dtype, count=1):
     if compute_dtype == "float32":
-        fn.launches_f32 += 1
+        fn.launches_f32 += count
     else:
-        fn.launches += 1
+        fn.launches += count
 
 
 def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
@@ -505,17 +511,14 @@ def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
     H_final = torch.empty((B, n + m, h), dtype=f32, device=dev)
     pr = torch.empty((B, J), dtype=f32, device=dev)
     dr = torch.empty((B, J), dtype=f32, device=dev)
-    fn = _build.function("train_fwd", "iadmm_train_fwd_step", _FWD_ARGS)
-    stream = _build.stream_ptr(dev)
-    fixed = [t.data_ptr() for t in (*ops, *streams)]
-    tail = [t.data_ptr() for t in (pr, dr, *_fwd_scratch(B, n, m, h, dev))]
-    f32_flag = int(compute_dtype == "float32")
-    for k in range(J):
-        code = fn(k, t0 + k, *fixed,
-                  H_final.data_ptr() if k == J - 1 else None, *tail,
-                  B, n, m, h, J, f32_flag, float(sigma), stream)
-        _build.check(code, "iadmm_train_fwd_step")
-        _count(train_fwd_cuda, compute_dtype)
+    fn = _build.function("train_fwd", "iadmm_train_fwd_chunk", _FWD_ARGS)
+    code = fn(t0, *(t.data_ptr() for t in (
+        *ops, *streams, H_final, pr, dr,
+        *_fwd_scratch(B, n, m, h, J, dev))),
+        B, n, m, h, J, int(compute_dtype == "float32"), float(sigma),
+        _build.stream_ptr(dev))
+    _build.check(code, "iadmm_train_fwd_chunk")
+    _count(train_fwd_cuda, compute_dtype, J)
     hs, cs, xs, ys, zs, xvs = streams
     final = (xs[J].clone(), ys[J].clone(), zs[J].clone(), xvs[J].clone(),
              H_final, cs[J].clone())
@@ -577,11 +580,18 @@ train_bwd_cuda.launches_f32 = 0  # reverse steps launched, float32 compute
 
 def train_fwd_seg_cuda(weights, state, data, *, t0: int, J: int,
                        sigma: float, compute_dtype: str = "bfloat16",
-                       losses=None, col: int = 0):
+                       losses=None, col: int = 0, pending: bool = False,
+                       close: bool = True):
     """The segment forward kernel on CUDA tensors; same contract as
     :func:`train_fwd_seg_plain`.  ``losses``: the chunk's (pr, dr), each a
     contiguous float32 (B, L), whose columns [col, col + J) it writes and
-    returns, in place of fresh (B, J) ones."""
+    returns, in place of fresh (B, J) ones.  The loss pass folds into the
+    next step's: ``pending`` (col > 0), the previous segment's call left
+    its last loss (column col − 1) to this one, which takes it from
+    ``state``; ``close=False`` leaves this call's last loss (column col +
+    J − 1) to the next segment's call.  A chunk's segments in order, the
+    first with ``pending=False`` and the last with ``close=True``, write
+    every column."""
     B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
                                     t0)
     dev = state[0].device
@@ -593,13 +603,15 @@ def train_fwd_seg_cuda(weights, state, data, *, t0: int, J: int,
     if col < 0 or col + J > L:
         raise ValueError(f"columns [{col}, {col + J}) do not fit losses of "
                          f"{L} columns")
+    if pending and col == 0:
+        raise ValueError("pending: no column before column 0")
     _check_float32(dict(pr=losses[0], dr=losses[1]), ((B, L), (B, L)))
     ops = _prep_cuda(weights, data, compute_dtype)
     bufs = _carries(state, compute_dtype, 2)
     H_final = torch.empty((B, n + m, h), dtype=f32, device=dev)
     fn = _build.function("train_fwd", "iadmm_train_fwd_seg", _FWD_SEG_ARGS)
-    code = fn(t0, col, L, *(t.data_ptr() for t in (
-        *ops, *bufs, H_final, *losses, *_fwd_scratch(B, n, m, h, dev))),
+    code = fn(t0, col, L, int(pending), int(close), *(t.data_ptr() for t in (
+        *ops, *bufs, H_final, *losses, *_fwd_scratch(B, n, m, h, J, dev))),
         B, n, m, h, J, int(compute_dtype == "float32"), float(sigma),
         _build.stream_ptr(dev))
     _build.check(code, "iadmm_train_fwd_seg")
@@ -778,9 +790,10 @@ class _SegmentChunk(torch.autograd.Function):
         for s in range(n_segs):
             ckpts.append(state)
             kw = dict(t0=t0 + s * J, **spec)
-            if x.is_cuda:
-                *_, state = train_fwd_seg_cuda(weights, state, data,
-                                               losses=chunk, col=s * J, **kw)
+            if x.is_cuda:   # each call takes the loss its previous left
+                *_, state = train_fwd_seg_cuda(
+                    weights, state, data, losses=chunk, col=s * J,
+                    pending=s > 0, close=s == n_segs - 1, **kw)
             else:
                 pr, dr, state = train_fwd_seg_plain(weights, state, data,
                                                     **kw)

@@ -123,3 +123,22 @@ def test_train_pair_bounds_at_the_flagship(dtype):
     assert streams == 100 * 4000 * 800 * (6 if dtype == "bfloat16" else 8)
     with pytest.raises(ValueError, match="dtype"):
         bounds.train_fwd(**dict(kw, dtype="float16"))
+
+
+@pytest.mark.parametrize("dtype,cb", [("bfloat16", 2), ("float32", 4)])
+def test_kkt_pass_bound_is_one_read_of_the_matrix(dtype, cb):
+    """One read of [Q; A0] ((n+m)·n elements an instance, shared by both
+    right-hand sides) plus each side's float32 vectors, partials and row
+    dots: bytes bound it; 8 MB of bf16 at B=2, n = m = 1000 read in
+    2.39 µs."""
+    B, n, m = 2, 1000, 1000
+    one, by = bounds.kkt_pass(B, n, m, dtype)
+    two, by2 = bounds.kkt_pass(B, n, m, dtype, nv=2)
+    side = B * 4 * ((n + m) + 63 * n + m)
+    read = B * (n + m) * n * cb
+    assert by == by2 == "bytes"
+    assert one == pytest.approx((read + side) / 3.35e12 * 1e3)
+    assert two - one == pytest.approx(side / 3.35e12 * 1e3)
+    if dtype == "bfloat16":
+        assert read / 3.35e12 * 1e6 == pytest.approx(2.388, abs=1e-3)
+    assert bounds.kkt_pass(16, n, m, dtype)[0] == pytest.approx(8 * one)

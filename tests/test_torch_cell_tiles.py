@@ -50,7 +50,9 @@ def test_cell_scratch(h):
 @pytest.mark.parametrize("h", WIDTHS)
 def test_train_scratch_per_profile(cdt, h):
     """The training pair's scratch, in the entry points' order: the
-    forward's delta partials (one row per 16 units), the backward's row
+    forward's two KKT passes' partials and row dots (the second carries
+    the pending loss), its loss vectors (J + 1 slabs) and its delta
+    partials (one row per 16 units), the backward's row
     partials (pg: one row per 32-unit tile for bf16, per 16 units for
     float32; pxv, also the segment backward's delta scratch: one per 16
     units), column partials (pdb, pdw0, pdw1, pdwh: one row per 128-token
@@ -61,9 +63,11 @@ def test_train_scratch_per_profile(cdt, h):
     n_rp = -(-h // {"bfloat16": 32, "float32": 16}[cdt])
     n_dp = -(-h // 16)
     n_mt = -(-M // 128)
-    fwd = ttr._fwd_scratch(B, n, m, h, "cpu")
+    J = 3
+    fwd = ttr._fwd_scratch(B, n, m, h, J, "cpu")
     assert [tuple(t.shape) for t in fwd] == [
-        (B, S), (B, S), (B, -(-S // 32), n), (B, m), (n_dp, M)]
+        (B, S), (B, S), (B, -(-S // 32), n), (B, m), (B, -(-S // 32), n),
+        (B, m), (J + 1, B, S), (n_dp, M)]
     bwd = ttr._bwd_scratch(B, n, m, h, cdt, "cpu")
     dpre_t = (4 * h, M) if cdt == "float32" else (1,)
     assert [tuple(t.shape) for t in bwd] == (

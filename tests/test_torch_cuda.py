@@ -454,19 +454,25 @@ def test_float32_train_kernels_match_plain(no_tf32):
         assert gap <= 1e-4 or gap <= 2 * _leaf_gap(o, b), (f"d{k}", gap)
 
 
-def _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt):
+def _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt,
+              fold=True):
     """The segment pair over a chunk of J steps, as make_fused_chunk_loss
-    runs it: losses, final state, gradients, start-state cotangents."""
+    runs it (``fold``: each call takes the loss its previous call left;
+    else each takes its own): losses, final state, gradients, start-state
+    cotangents."""
     kw = dict(sigma=1e-3, compute_dtype=cdt)
     B = st[0].shape[0]
     losses = tuple(torch.empty((B, J), device=st[0].device)
                    for _ in range(2))
     ckpts, cur = [], st
-    for s in range(J // seg):
+    n_segs = J // seg
+    for s in range(n_segs):
         ckpts.append(cur)
+        order = (dict(pending=s > 0, close=s == n_segs - 1) if fold
+                 else {})
         *_, cur = ttr.train_fwd_seg_cuda(weights, cur, dd, t0=t0 + s * seg,
                                          J=seg, losses=losses, col=s * seg,
-                                         **kw)
+                                         **order, **kw)
     acc, dst = None, dfin
     for s in reversed(range(J // seg)):
         acc, dst = ttr.train_bwd_seg_cuda(weights, ckpts[s], dd, dst, dpr,
@@ -480,7 +486,8 @@ def _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt):
 def test_segment_kernels_match_the_stream_kernels(no_tf32, seg, cdt):
     """The segment pair over a J=6 chunk: losses, final state, every
     gradient leaf and the start state's cotangents bitwise equal to the
-    stream pair's (the same launches, sums in the same order); the forward
+    stream pair's (the same launches, sums in the same order), with the
+    loss pass folded across the segments' calls or not; the forward
     against the plain segment forward at the stream tests' tolerances; the
     segment backward twice bitwise equal; one launch a segment each."""
     from iadmm_tpu_torch.kernels import train_rollout as ttr
@@ -511,6 +518,11 @@ def test_segment_kernels_match_the_stream_kernels(no_tf32, seg, cdt):
         assert torch.equal(a, b), f"d{k}"
     again = _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt)
     assert all(torch.equal(a, b) for a, b in zip(again[1], sgrads))
+    # each call closing its own losses: the same bits
+    own = _segments(ttr, weights, st, dd, dfin, dpr, ddr, seg, J, t0, cdt,
+                    fold=False)
+    for k, a, b in zip(names, own[0], outs):
+        assert torch.equal(a, b), k
     ppr, pdr, pfin = ttr.train_fwd_seg_plain(weights, st, dd, t0=t0, J=J,
                                              **kw)
     for a, b in zip(outs, (ppr, pdr, *pfin)):
@@ -518,6 +530,72 @@ def test_segment_kernels_match_the_stream_kernels(no_tf32, seg, cdt):
             torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
         else:
             assert _leaf_gap(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("cdt", ["bfloat16", "float32"])
+def test_forward_folds_the_loss_pass_bitwise_at_J100(no_tf32, cdt):
+    """J=100: the stream forward (one call; each step's loss pass shares
+    the next step's read of [Q; A0]), the segment forward in segments of 2
+    with the loss folded across calls (the chunk loss's order) and with
+    each call taking its own: losses and final states bitwise equal, the
+    losses finite; J steps counted, one call."""
+    from iadmm_tpu_torch.kernels import train_rollout as ttr
+    dev, J, seg = no_tf32, 100, 2
+    weights, st, dd, g = _train_inputs(dev, K=J)
+    kw = dict(sigma=1e-3, compute_dtype=cdt)
+    ctr = "launches" if cdt == "bfloat16" else "launches_f32"
+    f0 = getattr(ttr.train_fwd_cuda, ctr)
+    pr, dr, final, _ = ttr.train_fwd_cuda(weights, st, dd, t0=0, J=J, **kw)
+    assert getattr(ttr.train_fwd_cuda, ctr) == f0 + J
+    assert bool(torch.isfinite(pr).all() and torch.isfinite(dr).all())
+    B = st[0].shape[0]
+    for fold in (True, False):
+        losses = tuple(torch.empty((B, J), device=dev) for _ in range(2))
+        cur = st
+        for s in range(J // seg):
+            order = (dict(pending=s > 0, close=s == J // seg - 1) if fold
+                     else {})
+            *_, cur = ttr.train_fwd_seg_cuda(weights, cur, dd, t0=s * seg,
+                                             J=seg, losses=losses,
+                                             col=s * seg, **order, **kw)
+        for k, a, b in zip(("pr", "dr", "x", "y", "z", "xv", "H", "C"),
+                           (*losses, *cur), (pr, dr, *final)):
+            assert torch.equal(a, b), (fold, k)
+
+
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,n,m", [(1, 37, 21), (3, 37, 21), (1, 64, 32),
+                                   (3, 64, 32), (1, 130, 70), (3, 130, 70),
+                                   (2, 1000, 1000), (16, 1000, 1000)])
+def test_kkt_pass_matches_plain(no_tf32, B, n, m, dtype, nv):
+    """The KKT pass (kernels/kkt_pass.py) against its plain version: the
+    chunk partials and row dots to 1e-5 of max|ref| (float32 sums in
+    another order; bf16 data with the vectors rounded to bf16); with two
+    right-hand sides each output bitwise what a one-vector call gives; two
+    calls bitwise equal; one launch a call."""
+    from iadmm_tpu_torch.kernels.kkt_pass import kkt_pass, kkt_pass_plain
+    dev = no_tf32
+    g = torch.Generator().manual_seed(n + m + B)
+    Q = torch.randn((B, n, n), generator=g)
+    Q = (0.5 * (Q + Q.transpose(1, 2))).to(dev, dtype)
+    A0 = torch.randn((B, m, n), generator=g).to(dev, dtype)
+    vecs = [torch.randn(s, generator=g).to(dev)
+            for s in ((B, n), (B, m), (B, n), (B, m))][:2 * nv]
+    before = kkt_pass.launches
+    outs = kkt_pass(Q, A0, *vecs)
+    assert kkt_pass.launches == before + 1
+    again = kkt_pass(Q, A0, *vecs)
+    for k, (p, r) in enumerate(outs):
+        wt, wb = vecs[2 * k:2 * k + 2]
+        rp, rr = kkt_pass_plain(Q, A0, wt, wb)
+        for a, b in ((p, rp), (r, rr)):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-5 * float(b.abs().max()))
+        assert torch.equal(p, again[k][0]) and torch.equal(r, again[k][1])
+        if nv == 2:
+            ap, ar = kkt_pass(Q, A0, wt, wb)[0]
+            assert torch.equal(p, ap) and torch.equal(r, ar)
 
 
 @pytest.mark.parametrize("cdt", ["bfloat16", "float32"])

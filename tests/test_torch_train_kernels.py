@@ -230,3 +230,17 @@ def test_cuda_wrappers_check_before_launch():
         with pytest.raises(ValueError, match="dH"):
             ttr.train_bwd_seg_cuda(weights, st, dd, final[:4] + (
                 final[4][:, :-1], final[5]), pr, dr, **kwd)
+
+
+def test_segment_forward_refuses_a_pending_loss_before_column_0():
+    """The segment forward takes a pending loss (the previous segment's
+    last, column col − 1) only where there is such a column; refused
+    before any CUDA call, so this holds on the CPU."""
+    data, params, state = make_inputs()
+    weights, st, dd = _tensors(data, params, state, torch.float32)
+    losses = tuple(torch.zeros((B, J)) for _ in range(2))
+    for cdt in ("bfloat16", "float32"):
+        with pytest.raises(ValueError, match="pending"):
+            ttr.train_fwd_seg_cuda(weights, st, dd, t0=0, J=2, sigma=SIGMA,
+                                   compute_dtype=cdt, losses=losses, col=0,
+                                   pending=True)
