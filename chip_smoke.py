@@ -151,22 +151,27 @@ cell at five (the flagship shape with both state dtypes, ragged ones), a
 J=6 bf16 training forward at B=2, the float32 stream pair and segment
 pair (segments of 2) at J=6 with every gradient and start-state
 cotangent, the J=100 forward at B=2 at both profiles, one bf16 segment
-call at B=16, (d)'s first request with its LU and pre-polish references
-and a float32 ``make_solver`` solve, in one file per checkout (copy this
-script into an older checkout first):
+call at B=16, (d)'s first request with its LU and pre-polish references,
+a float32 ``make_solver`` solve, and Stage II's three solvers at B=8, N=20
+on the serving rollout's iterates ('kkt' also at refine 1, 'direct' also
+at refine 0; 'cg' with its unmasked-iteration counts), in one file per
+checkout (copy this script into an older checkout first):
 
     python3 chip_smoke.py --snapshot a.pt
     python3 chip_smoke.py --compare a.pt b.pt
 
 and the rows of PERF.md §6 (both profiles, with a chunk update and a
-solve of each, the forward's device breakdown and busy share) timed on
-one card, the checkouts in turns:
+solve of each, the forward's and each Stage-II solver's device breakdown
+and busy share, 'kkt' also on a row-major operand and 'cg' also with its
+CUDA graph captured anew each call) timed on one card, the checkouts in
+turns:
 
     python3 chip_smoke.py --time-rows a.json
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -2778,6 +2783,63 @@ def make_lu_polish(data, st, rho_vec):
     return pr
 
 
+# Rows 3, 3d, 3c of PERF.md §6: one N=20 call of each Stage-II solver at
+# B=8 from the serving rollout's iterates (as phases (c) and (q))
+STAGE2_ROWS = (
+    ("3 stage2 kkt", "kkt", dict(num_iters=POLISH_STEPS, sigma=SIGMA,
+                                 refine=0)),
+    ("3d stage2 direct", "direct", dict(num_iters=POLISH_STEPS, sigma=SIGMA,
+                                        refine=DIRECT_REFINE)),
+    ("3c stage2 cg", "cg", dict(num_iters=POLISH_STEPS, sigma=SIGMA,
+                                cg_iters=CG_ITERS, tol=1e-8)))
+
+
+def stage2_iterates(params):
+    """(data, state, rho) of Stage II at the serving shape: the fused
+    rollout's iterates of the B=8 batch of seed 1, unscaled, and the last
+    step's ρ."""
+    import torch
+    from iadmm_tpu_torch.kernels import rollout_kernel as rk
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.step import _schedules
+    from iadmm_tpu_torch.types import IterState
+    data = qp_batch(SERVE_BATCH, seed=1)
+    scaled, sc = scale_batch(data)
+    x, y, z = rk.fused_rollout(params, scaled, hidden=HIDDEN, K=K_ITERS,
+                               sigma=SIGMA)
+    B = x.shape[0]
+    st = IterState(x=sc.unscale_x(x), y=sc.unscale_y(y), z=sc.unscale_z(z),
+                   xv=torch.cat([x, y], -1), H=x.new_zeros((B, 1, 1)),
+                   C=x.new_zeros((B, 1, 1)))
+    rho_vec, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
+    return data, st, rho_vec.float() * torch.ones_like(data.zl)
+
+
+def stage2_call(solver, data, rho):
+    """(the solver's CUDA wrapper, its operand) for ``data`` and ``rho``."""
+    from iadmm_tpu_torch.kernels import stage2_kernel as s2
+    form, fn = dict(kkt=(s2.kkt_inverse, s2.stage2_cuda),
+                    direct=(s2.direct_inverse, s2.stage2_direct_cuda),
+                    cg=(s2.cg_diag, s2.stage2_cg_cuda))[solver]
+    return fn, form(data, rho, SIGMA)
+
+
+def snapshot_stage2(params, out):
+    """The Stage-II outputs that ``compare`` holds bitwise: each solver's
+    N=20 call of rows 3, 3d, 3c ('cg' with its unmasked-iteration counts),
+    'kkt' at refine 1 and 'direct' at refine 0, from the serving rollout's
+    iterates."""
+    data, st, rho = stage2_iterates(params)
+    extra = (("kkt", dict(STAGE2_ROWS[0][2], refine=1)),
+             ("direct", dict(STAGE2_ROWS[1][2], refine=0)))
+    for solver, kw in [(s, kw) for _, s, kw in STAGE2_ROWS] + list(extra):
+        fn, op = stage2_call(solver, data, rho)
+        tag = ", ".join(f"{k}={v}" for k, v in kw.items()
+                        if k not in ("sigma", "tol"))
+        out[f"stage2 {solver} {tag}"] = fn(st, data, rho, op, **kw)
+        del op
+
+
 def snapshot(path):
     """Save this checkout's outputs that ``compare`` holds bitwise."""
     import torch
@@ -2864,6 +2926,7 @@ def snapshot(path):
                     use_pallas=True)(req)
     out["serve float32"] = tuple(getattr(r, f) for f in ("x", "y", "z",
                                                          "primal_res"))
+    snapshot_stage2(params, out)
     torch.save({k: [t.cpu() for t in v] for k, v in out.items()}, path)
     return 0
 
@@ -2871,10 +2934,13 @@ def snapshot(path):
 def time_rows(path):
     """Time this checkout's rows of the PERF.md §6 table at its shapes and
     write them to ``path`` as JSON: the cell (1, 1f), the rollout (2),
-    Stage II 'kkt', 'direct', 'cg' (3, 3d, 3c), the stream pair at B=2 (4,
-    4f, 5, 5f) and the segment pair at B=16 (6, 6f, 7, 7f) over J=100, a
+    Stage II 'kkt', 'direct', 'cg' (3, 3d, 3c; each call's device ms by
+    kernel and busy share; 'kkt' also on a row-major operand, 'cg' also
+    with a new argument set each call), the stream pair at B=2 (4, 4f, 5,
+    5f) and the segment pair at B=16 (6, 6f, 7, 7f) over J=100, a
     fused chunk update at B=2 at both profiles (three in a row), solves
-    of B=8 at both profiles (three requests, twice), and the forward's
+    of B=8 at both profiles (three requests, twice; a solve's device
+    breakdown, and Ã⁻¹'s formation alone six times), and the forward's
     device breakdown and busy share.  Run in
     two checkouts, in turns, to compare them on one card."""
     import torch
@@ -2887,10 +2953,9 @@ def time_rows(path):
     from iadmm_tpu_torch.kernels.train_rollout import make_fused_chunk_loss
     from iadmm_tpu_torch.scaling import scale_batch
     from iadmm_tpu_torch.solvers.cells import lstm_init
-    from iadmm_tpu_torch.solvers.step import _schedules
     from iadmm_tpu_torch.train.harness import make_optimizer, \
         make_train_chunk
-    from iadmm_tpu_torch.types import IterState, init_state
+    from iadmm_tpu_torch.types import init_state
     _build.build_all()
     out = dict(card=torch.cuda.get_device_name(0))
     params = lstm_init(torch.Generator().manual_seed(0), 2, HIDDEN, K_ITERS,
@@ -2905,27 +2970,33 @@ def time_rows(path):
         del keys, x, H, C
     # serving: the rollout, then Stage II from its iterates
     data = qp_batch(SERVE_BATCH, seed=1)
-    scaled, sc = scale_batch(data)
+    scaled, _ = scale_batch(data)
     out["2 rollout"] = cuda_ms(lambda: rk.fused_rollout(
         params, scaled, hidden=HIDDEN, K=K_ITERS, sigma=SIGMA), reps=3)
-    x, y, z = rk.fused_rollout(params, scaled, hidden=HIDDEN, K=K_ITERS,
-                               sigma=SIGMA)
-    st2 = IterState(x=sc.unscale_x(x), y=sc.unscale_y(y), z=sc.unscale_z(z),
-                    xv=torch.cat([x, y], -1), H=x.new_zeros((8, 1, 1)),
-                    C=x.new_zeros((8, 1, 1)))
-    rho_vec, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
-    rho = rho_vec.float() * torch.ones_like(data.zl)
-    N = POLISH_STEPS
-    for key, form, fn, kw in (
-            ("3 stage2 kkt", s2.kkt_inverse, s2.stage2_cuda,
-             dict(refine=0)),
-            ("3d stage2 direct", s2.direct_inverse, s2.stage2_direct_cuda,
-             dict(refine=DIRECT_REFINE)),
-            ("3c stage2 cg", s2.cg_diag, s2.stage2_cg_cuda,
-             dict(cg_iters=CG_ITERS, tol=1e-8))):
-        op = form(data, rho, SIGMA)
-        out[key] = cuda_ms(lambda: fn(st2, data, rho, op, num_iters=N,
-                                      sigma=SIGMA, **kw), reps=2)
+    data, st2, rho = stage2_iterates(params)
+    for key, solver, kw in STAGE2_ROWS:
+        fn, op = stage2_call(solver, data, rho)
+        if solver == "kkt":
+            # Ã⁻¹ as torch.linalg.inv returns it (column-major), so that the
+            # row's time holds the copy to row-major in every checkout
+            # (made in the wrapper, or where the operand is formed); beside
+            # it the kernel alone on a row-major operand
+            rows = op.contiguous()
+            op = op.mT.contiguous().mT
+            out[f"{key}, row-major operand"] = cuda_ms(
+                lambda: fn(st2, data, rho, rows, **kw), reps=2)
+            del rows
+        out[key] = cuda_ms(lambda: fn(st2, data, rho, op, **kw), reps=2)
+        # the call's device ms by kernel and the device's busy share
+        out[f"{key} busy"] = busy_share(
+            lambda: fn(st2, data, rho, op, **kw), top=16)
+        if solver == "cg":
+            # each call with another tolerance than the last: a CUDA graph
+            # of the CG loop is captured and instantiated anew each call
+            tols = itertools.cycle((kw["tol"], 1.01 * kw["tol"]))
+            out[f"{key}, graph captured each call"] = cuda_ms(
+                lambda: fn(st2, data, rho, op, **dict(kw, tol=next(tols))),
+                reps=2)
         del op
     torch.cuda.empty_cache()
     # training: the stream pair at B=2, the segment pair at B=16
@@ -2995,6 +3066,12 @@ def time_rows(path):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out[name] = times
+        # what spreads a solve: its device ms by kernel, and Ã⁻¹'s
+        # formation alone (the batched LU inverse; six calls, CUDA events)
+        out[f"{name} busy"] = busy_share(lambda: solve(req), top=16)
+    out["kkt_inverse"] = [cuda_ms(lambda: s2.kkt_inverse(data, rho, SIGMA),
+                                  reps=1, warmup=int(i == 0))
+                          for i in range(6)]
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)

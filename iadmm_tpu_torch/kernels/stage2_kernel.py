@@ -54,14 +54,17 @@ def _full_float32():
 
 
 def kkt_inverse(data: QPBatch, rho: torch.Tensor, sigma: float):
-    """Float32 Ã⁻¹ of the full saddle-point matrix, (B, n+m, n+m)."""
+    """Float32 Ã⁻¹ of the full saddle-point matrix, (B, n+m, n+m), stored
+    row-major.  ``torch.linalg.inv`` returns it column-major and the kernel
+    reads its rows, so forming the operand ends in a transposing copy (128
+    MB at B=8, n=m=1000), paid once a ``fused_stage2`` call."""
     f32 = torch.float32
     n = data.num_var
     Q, A0 = data.Q.to(f32), data.A0.to(f32)
     eye = torch.eye(n, dtype=f32, device=Q.device)
     top = torch.cat([Q + sigma * eye, A0.transpose(1, 2)], dim=-1)
     bot = torch.cat([A0, torch.diag_embed(-1.0 / rho)], dim=-1)
-    return torch.linalg.inv(torch.cat([top, bot], dim=1))
+    return torch.linalg.inv(torch.cat([top, bot], dim=1)).contiguous()
 
 
 def direct_inverse(data: QPBatch, rho: torch.Tensor, sigma: float):
@@ -201,10 +204,29 @@ def stage2_cg_plain(state: IterState, data: QPBatch, rho: torch.Tensor,
 
 _STAGE2_ARGS = ([_build.I] * 3 + [_build.P] * 17 + [_build.I] * 3
                 + [_build.F] * 2 + [_build.P])
-_DIRECT_ARGS = ([_build.I] * 3 + [_build.P] * 19 + [_build.I] * 3
+_DIRECT_ARGS = ([_build.I] * 3 + [_build.P] * 18 + [_build.I] * 3
                 + [_build.F] * 2 + [_build.P])
-_CG_ARGS = ([_build.I] * 3 + [_build.P] * 24 + [_build.I] * 3
+_CG_ARGS = ([_build.I] * 3 + [_build.P] * 23 + [_build.I] * 3
             + [_build.F] * 3 + [_build.P])
+
+# columns of a partial sum of pᵀAp and rᵀr in csrc/stage2.cu
+CG_COLUMNS = _build.header_int("stage2.cu", "CG_THREADS")
+
+
+def condensed_max_n(dev) -> int:
+    """The largest n that 'direct' and 'cg' take on ``dev``: an A0 item of
+    csrc/stage2.cu's M·v holds at least two rows of A0 and v in shared
+    memory, the CG update p, r and d (about 16·n and 12·n bytes)."""
+    with torch.cuda.device(dev):
+        return _build.function("stage2", "iadmm_stage2_max_n", [])()
+
+
+def _check_condensed_n(n: int, dev, solver: str) -> None:
+    limit = condensed_max_n(dev)
+    if n > limit:
+        raise ValueError(f"stage2 solver {solver!r}: n={n} is above the "
+                         f"largest n this device takes, {limit} (shared "
+                         f"memory); use 'kkt'")
 
 
 def _cuda_operands(state: IterState, data: QPBatch, rho: torch.Tensor,
@@ -233,44 +255,46 @@ def _scratch(dev, *shapes):
     return [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
 
 
+def _run_steps(fn, what, counter, N, head, tensors, tail):
+    """The N polish steps, one call of ``fn`` a step: (i, N, *head,
+    pointers of ``tensors``, *tail); each counts once in ``counter``."""
+    ptrs = [t.data_ptr() for t in tensors]
+    for i in range(N):
+        _build.check(fn(i, N, *head, *ptrs, *tail), what)
+        setattr(fused_stage2, counter, getattr(fused_stage2, counter) + 1)
+
+
 def stage2_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
                 Ainv: torch.Tensor, *, num_iters: int, sigma: float,
                 refine: int):
     """The 'kkt' kernel's N polish steps on CUDA tensors; same contract as
-    :func:`stage2_plain`."""
+    :func:`stage2_plain`.  The kernel reads Ã⁻¹ by rows: an operand that is
+    not row-major (``torch.linalg.inv``'s own result) is copied first."""
     dev = data.p.device
     B, n = data.p.shape
     m = data.num_constr
     S, N = n + m, num_iters
-    (Q, A0, A, p, zl, zu, rho_c), (x, y, z, xt) = _cuda_operands(
-        state, data, rho, Ainv, (B, S, S), "Ainv")
+    consts, (x, y, z, xt) = _cuda_operands(state, data, rho, Ainv,
+                                           (B, S, S), "Ainv")
     xv = torch.cat([xt, torch.zeros((B, m), dtype=xt.dtype, device=dev)],
                    dim=-1)
-    bt, r, mv_partial, rowdot, pr, dr = _scratch(
-        dev, (B, S), (B, S), (B, -(-S // _build.KKT_ROWS), n), (B, m),
-        (B, N), (B, N))
-    fn = _build.function("stage2", "iadmm_stage2_step", _STAGE2_ARGS)
-    stream = _build.stream_ptr(dev)
-    ptrs = [t.data_ptr() for t in (Q, A0, A, p, zl, zu, rho_c, x, y, z, xv,
-                                   bt, r, mv_partial, rowdot, pr, dr)]
-    for i in range(N):
-        code = fn(i, N, refine, *ptrs, B, n, m, float(sigma),
-                  float(ALPHA_STAGE2), stream)
-        _build.check(code, "iadmm_stage2_step")
-        fused_stage2.launches += 1
+    scratch = _scratch(dev, (B, S), (B, S), (B, -(-S // _build.KKT_ROWS), n),
+                       (B, m), (B, N), (B, N))
+    _run_steps(_build.function("stage2", "iadmm_stage2_step", _STAGE2_ARGS),
+               "iadmm_stage2_step", "launches", N, (refine,),
+               [*consts, x, y, z, xv, *scratch],
+               (B, n, m, float(sigma), float(ALPHA_STAGE2),
+                _build.stream_ptr(dev)))
+    pr, dr = scratch[-2:]
     return x, y, z, xv[:, :n], pr, dr
 
 
 def _condensed_scratch(dev, B, n, m):
-    """bvec, r (B, n); zeros (B, m); the colpass partials of [Q; A0]
-    (B, ceil((n+m)/32), n), the A0ᵀ-pass partials (B, ceil(m/32), n) and
-    rowdot (B, m)."""
+    """bvec, r (B, n); the partials of [Q; A0] (B, ceil((n+m)/32), n), of
+    A0 (B, ceil(m/32), n) and rowdot (B, m)."""
     rows = _build.KKT_ROWS
-    bvec, r, part_q, part_a, rowdot = _scratch(
-        dev, (B, n), (B, n), (B, -(-(n + m) // rows), n),
-        (B, -(-m // rows), n), (B, m))
-    zeros = torch.zeros((B, m), dtype=torch.float32, device=dev)
-    return [bvec, r, zeros, part_q, part_a, rowdot]
+    return _scratch(dev, (B, n), (B, n), (B, -(-(n + m) // rows), n),
+                    (B, -(-m // rows), n), (B, m))
 
 
 def stage2_direct_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
@@ -281,22 +305,18 @@ def stage2_direct_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
     dev = data.p.device
     B, n = data.p.shape
     m, N = data.num_constr, num_iters
+    _check_condensed_n(n, dev, "direct")
     consts, (x, y, z, xt) = _cuda_operands(state, data, rho, P, (B, n, n),
                                            "P")
-    scratch = _condensed_scratch(dev, B, n, m)
     pr, dr = _scratch(dev, (B, N), (B, N))
-    fn = _build.function("stage2", "iadmm_stage2_direct_step", _DIRECT_ARGS)
-    stream = _build.stream_ptr(dev)
-    ptrs = [t.data_ptr() for t in (*consts, x, y, z, xt, *scratch, pr, dr)]
-    for i in range(N):
-        code = fn(i, N, refine, *ptrs, B, n, m, float(sigma),
-                  float(ALPHA_STAGE2), stream)
-        _build.check(code, "iadmm_stage2_direct_step")
-        fused_stage2.launches_direct += 1
+    _run_steps(_build.function("stage2", "iadmm_stage2_direct_step",
+                               _DIRECT_ARGS),
+               "iadmm_stage2_direct_step", "launches_direct", N, (refine,),
+               [*consts, x, y, z, xt, *_condensed_scratch(dev, B, n, m),
+                pr, dr],
+               (B, n, m, float(sigma), float(ALPHA_STAGE2),
+                _build.stream_ptr(dev)))
     return x, y, z, xt, pr, dr
-
-
-CG_THREADS = 256   # threads of stage2.cu's cg_ap_kernel (one n-slice each)
 
 
 def stage2_cg_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
@@ -308,22 +328,19 @@ def stage2_cg_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
     dev = data.p.device
     B, n = data.p.shape
     m, N = data.num_constr, num_iters
+    _check_condensed_n(n, dev, "cg")
     consts, (x, y, z, xt) = _cuda_operands(state, data, rho, diag, (B, n),
                                            "diag")
-    nblk = -(-n // CG_THREADS)
-    scratch = _condensed_scratch(dev, B, n, m)
-    pv, ap, dots, scal, pr, dr = _scratch(
-        dev, (B, n), (B, n), (B, nblk, 2), (B, 2), (B, N), (B, N))
+    warps = -(-n // CG_COLUMNS) * (CG_COLUMNS // 32)
+    pv, ap, wsum, scal, pr, dr = _scratch(
+        dev, (B, n), (B, n), (B, warps, 2), (B, 2), (B, N), (B, N))
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    fn = _build.function("stage2", "iadmm_stage2_cg_step", _CG_ARGS)
-    stream = _build.stream_ptr(dev)
-    ptrs = [t.data_ptr() for t in (*consts, x, y, z, xt, *scratch,
-                                   pv, ap, dots, scal, iters, pr, dr)]
-    for i in range(N):
-        code = fn(i, N, cg_iters, *ptrs, B, n, m, float(sigma), float(tol),
-                  float(ALPHA_STAGE2), stream)
-        _build.check(code, "iadmm_stage2_cg_step")
-        fused_stage2.launches_cg += 1
+    _run_steps(_build.function("stage2", "iadmm_stage2_cg_step", _CG_ARGS),
+               "iadmm_stage2_cg_step", "launches_cg", N, (cg_iters,),
+               [*consts, x, y, z, xt, *_condensed_scratch(dev, B, n, m),
+                pv, ap, wsum, scal, iters, pr, dr],
+               (B, n, m, float(sigma), float(tol), float(ALPHA_STAGE2),
+                _build.stream_ptr(dev)))
     return x, y, z, xt, pr, dr, iters
 
 

@@ -15,6 +15,8 @@ max|ref| (a bf16 H'/C' to one bf16 ulp) and the float32 training pair to
 6 steps of the recurrence), with TF32 off in the plain versions.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -150,8 +152,8 @@ def test_stage2_matches_plain(dev, refine):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
-def _stage2_inputs(dev, seed=0):
-    data = _qp(dev)
+def _stage2_inputs(dev, seed=0, **shape):
+    data = _qp(dev, **shape)
     B, n, m = data.batch, data.num_var, data.num_constr
     g = torch.Generator().manual_seed(seed)
     st = IterState(*(0.1 * torch.randn(s, generator=g).to(dev)
@@ -231,6 +233,62 @@ def test_stage2_cg_matches_plain(no_tf32):
                                    tol=1e-8))
     assert ts2.fused_stage2.launches_cg == before + 5 + 2 * 4
     assert torch.equal(out[6], ref[6])
+
+
+# (B, n, mi, me): n not a multiple of 4 (37, 70) or of 32 (132), m below
+# 32 (15), B = 1
+STAGE2_RAGGED = [(1, 37, 9, 6), (3, 70, 20, 13), (2, 132, 40, 30)]
+
+
+@pytest.mark.parametrize("solver", ["kkt", "direct", "cg"])
+@pytest.mark.parametrize("B,n,mi,me", STAGE2_RAGGED)
+def test_stage2_ragged_shapes(no_tf32, solver, B, n, mi, me):
+    """Each solver at ragged shapes against its plain twin at a short run
+    (1e-4 of max(1, max|ref|); 'cg' with equal unmasked-iteration counts);
+    two calls bitwise equal; one count a polish step."""
+    data, st, rho = _stage2_inputs(no_tf32, B=B, n=n, mi=mi, me=me)
+    if solver == "kkt":
+        op = ts2.kkt_inverse(data, rho, 1e-4)
+        kern, plain = ts2.stage2_cuda, ts2.stage2_plain
+        kw, counter = dict(num_iters=3, sigma=1e-4, refine=1), "launches"
+    elif solver == "direct":
+        op = ts2.direct_inverse(data, rho, 1e-4)
+        kern, plain = ts2.stage2_direct_cuda, ts2.stage2_direct_plain
+        kw, counter = dict(num_iters=1, sigma=1e-4, refine=2), \
+            "launches_direct"
+    else:
+        op = ts2.cg_diag(data, rho, 1e-4)
+        kern, plain = ts2.stage2_cg_cuda, ts2.stage2_cg_plain
+        kw, counter = dict(num_iters=2, sigma=1e-4, cg_iters=4,
+                           tol=1e-8), "launches_cg"
+    before = getattr(ts2.fused_stage2, counter)
+    out, ref = _tight(kern, plain, data, st, rho, op, **kw)
+    assert getattr(ts2.fused_stage2, counter) == before + kw["num_iters"]
+    if solver == "cg":
+        assert torch.equal(out[6], ref[6])
+    again = kern(st, data, rho, op, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("solver", ["direct", "cg"])
+def test_stage2_condensed_n_limit(no_tf32, solver):
+    """'direct' and 'cg' raise a ValueError naming the largest n above it,
+    before any launch."""
+    limit = ts2.condensed_max_n(no_tf32)
+    assert 1000 < limit < 10 ** 6
+    data, st, rho = _stage2_inputs(no_tf32, B=1)
+    n = limit + 1
+    big = dataclasses.replace(
+        data, Q=torch.empty((1, n, n), device=no_tf32),
+        p=torch.zeros((1, n), device=no_tf32),
+        A0=torch.empty((1, data.num_constr, n), device=no_tf32))
+    op = (torch.empty((1, n, n), device=no_tf32) if solver == "direct"
+          else torch.ones((1, n), device=no_tf32))
+    run = dict(direct=ts2.stage2_direct_cuda, cg=ts2.stage2_cg_cuda)[solver]
+    kw = (dict(refine=2) if solver == "direct"
+          else dict(cg_iters=2, tol=1e-8))
+    with pytest.raises(ValueError, match=f"largest n .* {limit}"):
+        run(st, big, rho, op, num_iters=1, sigma=1e-4, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -343,3 +343,16 @@ def test_stage2_solver_names(solver):
     assert st.xv.shape == (1, 16) and bool(torch.isfinite(st.xv).all())
     with pytest.raises(ValueError, match="unknown stage2 solver"):
         ts2.fused_stage2(tst, tdata, trho, num_iters=2, solver="qr")
+
+
+def test_kkt_inverse_is_row_major():
+    """The 'kkt' kernel reads Ã⁻¹ by rows: the operand is formed row-major
+    (``torch.linalg.inv`` returns it column-major), with the same values."""
+    _, tdata, _, _, _, trho = _stage2_setup(B=2, n=8, mi=4, me=4)
+    rho = trho.float() * torch.ones_like(tdata.zl)
+    Ainv = ts2.kkt_inverse(tdata, rho, 1e-4)
+    assert Ainv.is_contiguous() and Ainv.shape == (2, 16, 16)
+    Q, A0 = tdata.Q.float(), tdata.A0.float()
+    top = torch.cat([Q + 1e-4 * torch.eye(8), A0.mT], -1)
+    bot = torch.cat([A0, torch.diag_embed(-1.0 / rho)], -1)
+    assert torch.equal(Ainv, torch.linalg.inv(torch.cat([top, bot], 1)))
