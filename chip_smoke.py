@@ -8,8 +8,9 @@ then runs eight phases at the flagship shape QP_1000_500_500 / h=800, two
 at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50), four at the
 flagship's float32 precision profile (``configs/qp_1000_500_500.yaml``:
 float32 gates, float32 matvecs), two on the segment-recompute training
-route, which the shipped config takes from ``--batch_size 9``, and one on
-Stage II's condensed-system solvers:
+route, which the shipped config takes from ``--batch_size 9``, one on
+Stage II's condensed-system solvers and one on the canonical QP workload
+of ``scripts/run_workload.py``:
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16),
       on a ragged small case and on a ragged one at the flagship's width
@@ -129,7 +130,19 @@ Stage II's condensed-system solvers:
       and ``make_solver`` with 'fused-direct' (held to the LU route at
       1e-4 + 1e-3·|LU| or, where further, to the float64 LU polish as (n))
       and with 'cg' (no Stage-II kernel; every instance below its first
-      polish step's primal residual) answering 3 requests of B=8 each.
+      polish step's primal residual) answering 3 requests of B=8 each;
+  (r) the canonical QP workload (``scripts/run_workload.py`` "QP": h=800,
+      K = J = 100, B=2, bf16 gates, matvecs and preload) through the CLIs:
+      ``cli.generate_data`` writes 24 instances labelled by the native
+      oracle at 1e-4 (the phase fails on any other backend), one epoch of
+      ``cli.train`` on each backend over the preloaded train stack
+      (diagonal-Q storage on 'step', dense bf16 on 'fused'), ``cli.test
+      --baseline osqp``; then the same epochs at ``--preload never``: the
+      first-epoch loss of each route within CANON_LOSS_RTOL (bitwise on
+      'fused' where the stack equals the per-batch scaled batches
+      bitwise, which is reported); the labelling time, the host CPU, the
+      stack's bytes and the budget, each epoch's seconds and peak device
+      memory are printed.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before each main
@@ -137,7 +150,9 @@ path and read just after it: (d) and (e) (serving), (g) (training), (j)'s
 training and its ``run_test`` on the two routes (the sparse path), (m)'s
 three CLI runs (the shipped config), (n) (float32 serving) and each of
 (p)'s two CLI runs (the segment route), (q)'s ``fused_stage2(solver='cg')``
-and its two ``make_solver`` runs (the condensed Stage II).  The
+and its two ``make_solver`` runs (the condensed Stage II), and (r)'s
+generation, two preloaded epochs and ``cli.test`` (the canonical
+workload).  The
 second-to-last line is the per-kernel JSON, the last line ``{"ok": true,
 "device": {...}}``.  Weights are random from a seed (no trained checkpoint
 is in the repository).  Exits non-zero without a CUDA device.  Longer
@@ -2783,6 +2798,332 @@ def make_lu_polish(data, st, rho_vec):
     return pr
 
 
+# (r): the canonical QP workload (scripts/run_workload.py's "QP" entry and
+# the route it builds, :187-266) through the port's CLIs
+CANON_DIR = os.path.join(ROOT, "results", "chip_smoke_canonical")
+CANON_DATA, CANON_SEED, CANON_EPS = 24, 17, 1e-4
+# scripts/run_workload.py's base config and its "QP" entry; the val and
+# test fractions raised to 2 and 4 instances as it raises them (:221-224)
+CANON_FLAGS = ("--prob_type", "QP", "--num_var", str(N_VAR), "--num_ineq",
+               str(N_INEQ), "--num_eq", str(N_EQ), "--outer_T", "100",
+               "--truncated_length", "100", "--hidden_dim", str(HIDDEN),
+               "--eq_tol", "0.2", "--ineq_tol", "0.2",
+               "--preload_dtype", "bfloat16", "--batch_size", "2",
+               "--lr", "5e-5", "--sigma", "6e-6", "--seed", str(CANON_SEED),
+               "--patience", "100", "--test_outer_T", "100",
+               "--test_batch_size", "10", "--scaling", "true",
+               "--use_pallas", "--gate_dtype", "bfloat16",
+               "--matvec_mode", "bf16", "--clip_grad_norm", "1.0",
+               "--feas_rest_num", "20", "--num_epoch", "1")
+# First-epoch train loss and train objective (the last batch's, as the
+# harness reports them), preload='always' vs 'never', relative.  'step':
+# the stack holds Q as its float32 diagonal, multiplied exactly, where the
+# per-batch route rounds Q and the vector to bf16 in every matvec; two
+# runs on an NVIDIA H100 80GB HBM3 (700 W) measured 3.96e-5 (loss) and
+# 4.8e-5 (objective).  'fused': the kernels round Q and A0 to bf16 on both
+# routes, so the losses are bitwise equal; the objective is evaluated with
+# the stack's bf16 Q (1.9e-5 measured).  The limit sits 20x above those
+# gaps and below what a faulty stack moves (CANON_FAULTS).
+CANON_LOSS_RTOL = 1e-3
+# The gate's controls: step-route epochs over a stack with a known fault,
+# each of which must move the loss or the objective past CANON_LOSS_RTOL:
+# the train split stacked in reverse order (batches and labels no longer
+# match), and Q's stored diagonal 1% too large.
+CANON_FAULTS = ("reversed order", "Q x 1.01")
+
+
+def cpu_model():
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``) and
+    its logical core count."""
+    import platform
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((ln.split(":", 1)[1].strip() for ln in f
+                         if ln.lower().startswith("model name")), None)
+    except OSError:
+        pass
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in out.splitlines()
+                         if ln.lower().startswith("model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return (f"{name or 'model not reported'}, {platform.machine()}, "
+            f"{os.cpu_count()} logical cores")
+
+
+def stack_vs_per_batch(ds, cfg):
+    """The train split's scaled stacks, as each route stores them (dense
+    Q on 'fused'; Q as its float32 diagonal on 'step'; Q and A0 in
+    ``cfg.preload_dtype``), against the per-batch scaled batches cast to
+    the same dtypes: bitwise or not, and each leaf's largest gap.  The
+    diagonal store also needs the per-batch Q to be diagonal
+    (``Q_offdiag``)."""
+    import torch
+    from functools import partial
+    from iadmm_tpu_torch.problems.io import split_ids, to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.train import preload
+    train_ids, _, _ = split_ids(cfg.data_size, cfg.val_frac, cfg.test_frac,
+                                cfg.seed)
+    B = cfg.batch_size
+    nb = len(train_ids) // B
+    scale = partial(scale_batch, iters=cfg.scaling_ites)
+    refs = [scale(to_qp_batch(ds, train_ids[bi * B:(bi + 1) * B],
+                              with_metric_views=False, device=DEV))
+            for bi in range(nb)]
+
+    def gap(a, b):
+        return float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
+
+    out = {}
+    for route, diag_q in (("fused", False), ("step", True)):
+        stacked, cost = preload.preload_train_stack(
+            ds, train_ids[:nb * B], nb, B, cfg, scale, device=DEV,
+            diag_q=diag_q)
+        gaps = {}
+        for bi, (ref, sc) in enumerate(refs):
+            got, got_cost = preload.index_stack(stacked, cost, bi, B)
+            row = {k: gap(getattr(got, k), getattr(ref, k).to(
+                getattr(got, k).dtype))
+                for k in ("p", "A0", "zl", "zu", "eq_mask")}
+            if diag_q:
+                row["Q"] = gap(got.Q, torch.diagonal(ref.Q, 0, -2, -1))
+                row["Q_offdiag"] = gap(ref.Q - torch.diag_embed(
+                    torch.diagonal(ref.Q, 0, -2, -1)), torch.zeros_like(ref.Q))
+            else:
+                row["Q"] = gap(got.Q, ref.Q.to(got.Q.dtype))
+            row["cost"] = gap(got_cost, sc.cost)
+            for k, v in row.items():
+                gaps[k] = max(gaps.get(k, 0.0), v)
+        out[route] = dict(bitwise=all(v == 0.0 for v in gaps.values()),
+                          max_abs_gap=gaps)
+        del stacked
+    torch.cuda.empty_cache()
+    return dict(out, batches=nb)
+
+
+def phase_canonical(report):
+    """(r): the canonical QP workload at full width through the CLIs:
+    generate and label with the native oracle, one epoch on each training
+    route over the preloaded bf16 stack, ``cli.test --baseline osqp``;
+    then the same epochs at preload='never' for the gate, and the gate's
+    controls (CANON_FAULTS) on the step route.  Returns the
+    launches of the main path (generation, the two preloaded epochs and
+    the evaluation)."""
+    import dataclasses
+    import re
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch import native
+    from iadmm_tpu_torch.cli import config_parser, parse_config, \
+        generate_data as cli_gen, test as cli_test, train as cli_train
+    from iadmm_tpu_torch.problems.io import dataset_path, load_dataset
+    from iadmm_tpu_torch.train import checkpoint as ckpt, harness
+    from iadmm_tpu_torch.train.preload import device_memory_budget
+    from iadmm_tpu_torch.utils.logging import RunLog
+    shutil.rmtree(CANON_DIR, ignore_errors=True)
+    root = os.path.join(CANON_DIR, "data")
+    if not native.available():
+        raise PhaseError("r: the native QP oracle did not build")
+
+    zero_counts()   # the canonical workload's path, counted from 0
+    label_s = []
+    real_label = cli_gen.label_dataset
+
+    def timed_label(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_label(*a, **kw)
+        finally:
+            label_s.append(time.perf_counter() - t0)
+
+    cli_gen.label_dataset = timed_label
+    try:
+        t0 = time.perf_counter()
+        gen_text = run_cli(cli_gen, [
+            "--prob_type", "QP", "--num_var", str(N_VAR), "--num_ineq",
+            str(N_INEQ), "--num_eq", str(N_EQ), "--data_size",
+            str(CANON_DATA), "--seed", str(CANON_SEED), "--eps",
+            str(CANON_EPS), "--data_root", root], "canon_generate.txt")
+        gen_s = time.perf_counter() - t0
+    finally:
+        cli_gen.label_dataset = real_label
+    solved = re.search(r"native oracle: (\d+)/(\d+) solved, mean ([0-9.]+) "
+                       r"iters", gen_text)
+    if not solved or len(label_s) != 1:
+        raise PhaseError(f"r: the dataset was not labelled by the native "
+                         f"oracle: {gen_text[-300:]}")
+    ds = load_dataset(root, "QP", N_VAR, N_INEQ, N_EQ, 0, CANON_DATA)
+    n = ds.size
+    if ds.x_opt is None or n < 12:
+        raise PhaseError(f"r: {n} labelled instances")
+    val_frac = 2.0 / n if int(n * 0.01) < 2 else 0.01
+    test_frac = 4.0 / n if int(n * 0.05) < 4 else 0.05
+    common = list(CANON_FLAGS) + ["--data_size", str(n), "--val_frac",
+                                  str(val_frac), "--test_frac",
+                                  str(test_frac), "--data_root", root]
+    cfg = parse_config(config_parser("").parse_args(common))
+    budget = device_memory_budget(DEV)
+
+    def train_run(backend, preload, tag=None):
+        tag = tag or f"{backend}_{preload}"
+        d = os.path.join(CANON_DIR, tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        text = run_cli(cli_train, common + [
+            "--train_backend", backend, "--preload", preload,
+            "--save_dir", d], f"canon_train_{tag}.txt")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = RunLog(os.path.join(d, cfg.model_name,
+                                  cfg.run_name() + ".log.jsonl")).read()
+        epochs = [r for r in log if r["kind"] == "epoch"]
+        pre = [r for r in log if r["kind"] == "preload"]
+        if len(epochs) != 1 or not np.isfinite(epochs[0]["train_loss"]):
+            raise PhaseError(f"r {backend}/{preload}: epochs {epochs}")
+        line = next((ln.strip() for ln in text.splitlines()
+                     if ln.startswith("preloaded train split")), None)
+        return dict(dir=d, cli_s=wall, train_s=epochs[0]["train_time"],
+                    val_s=epochs[0]["val_time"],
+                    train_loss=epochs[0]["train_loss"],
+                    train_obj=epochs[0]["train_obj"],
+                    val_obj=epochs[0]["val_obj"],
+                    preload=pre[0] if pre else None, preload_line=line,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    runs = {}
+    for backend in ("step", "fused"):
+        runs[(backend, "always")] = train_run(backend, "always")
+    step_path = ckpt.checkpoint_path(runs[("step", "always")]["dir"],
+                                     cfg.model_name, cfg.run_name())
+    load = (step_path if os.path.exists(step_path)
+            else ckpt.latest_path(step_path))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test_text = run_cli(cli_test, common + [
+        "--save_dir", runs[("step", "always")]["dir"], "--load_path", load,
+        "--baseline", "osqp"], "canon_test.txt")
+    test_s = time.perf_counter() - t0
+    launches = launch_counts()
+
+    # the comparison runs: the same epochs on the per-batch route
+    for backend in ("step", "fused"):
+        runs[(backend, "never")] = train_run(backend, "never")
+    stack = stack_vs_per_batch(ds, cfg)
+
+    # the gate's controls: step epochs over a deliberately faulty stack
+    real_stack = harness.preload_train_stack
+
+    def reversed_order(ds_, ids, *a, **kw):
+        return real_stack(ds_, ids[::-1].copy(), *a, **kw)
+
+    def q_too_large(*a, **kw):
+        stacked, cost = real_stack(*a, **kw)
+        return dataclasses.replace(stacked, Q=stacked.Q * 1.01), cost
+
+    controls = {}
+    for name, fault in zip(CANON_FAULTS, (reversed_order, q_too_large)):
+        harness.preload_train_stack = fault
+        try:
+            controls[name] = train_run(
+                "step", "always", "step_fault_" + name.split()[0])
+        finally:
+            harness.preload_train_stack = real_stack
+
+    n_train = int(n * (1 - val_frac - test_frac))
+    chunks = n_train // cfg.batch_size
+    for k in ("train_fwd", "train_bwd"):
+        if launches[k] != chunks * cfg.truncated_length:
+            raise PhaseError(f"r: {k} launched {launches[k]} steps, "
+                             f"expected {chunks} chunks x "
+                             f"{cfg.truncated_length}")
+    if launches["cell"] <= 0:
+        raise PhaseError("r: the step route did not launch the cell kernel")
+    for k, v in launches.items():
+        if v and k not in ("cell", "train_fwd", "train_bwd"):
+            raise PhaseError(f"r: the bf16 profile launched {k}")
+    for (backend, preload), r in runs.items():
+        want = None if preload == "never" else (backend == "step")
+        got = None if r["preload"] is None else r["preload"]["diag_q"]
+        if got != want:
+            raise PhaseError(f"r {backend}/{preload}: preload record "
+                             f"{r['preload']}, expected diag_q {want}")
+        if preload == "always" and r["preload"]["dtype"] != "bfloat16":
+            raise PhaseError(f"r {backend}: stack dtype {r['preload']}")
+    base = re.search(r"OSQP-baseline \(native batch\): (\d+)/(\d+) solved "
+                     r"\| mean ([0-9.]+) iters \| mean ([0-9.]+) "
+                     r"ms/instance", test_text)
+    if not base or "Parallel Time" not in test_text:
+        raise PhaseError(f"r: cli.test output: {test_text[-400:]}")
+    def rel_gaps(a, b):
+        return {k: abs(a[k] - b[k]) / abs(b[k])
+                for k in ("train_loss", "train_obj")}
+
+    gaps = {backend: rel_gaps(runs[(backend, "always")],
+                              runs[(backend, "never")])
+            for backend in ("step", "fused")}
+    fault_gaps = {name: rel_gaps(r, runs[("step", "never")])
+                  for name, r in controls.items()}
+    row = dict(
+        config=("scripts/run_workload.py 'QP' (QP 1000/500/500, h=800, "
+                "outer_T = truncated_length = 100, B=2, lr 5e-5, use_pallas, "
+                "bf16 gates and matvecs, preload_dtype bfloat16, clip 1.0); "
+                f"cuts: {n} instances (seed {CANON_SEED}), val/test "
+                f"fractions {val_frac:.4f}/{test_frac:.4f}, 1 epoch a route, "
+                "untrained weights"),
+        host_cpu=cpu_model(), generate_cli_s=gen_s, label_s=label_s[0],
+        label_s_per_instance=label_s[0] / CANON_DATA,
+        oracle=dict(backend="native", solved=int(solved.group(1)),
+                    total=int(solved.group(2)),
+                    mean_iters=float(solved.group(3)), eps=CANON_EPS),
+        budget_gb=budget / 1e9,
+        runs={f"{b}/{p}": {k: v for k, v in r.items() if k != "dir"}
+              for (b, p), r in runs.items()},
+        test_cli_s=test_s,
+        timing_line=next((ln.strip() for ln in test_text.splitlines()
+                          if "Parallel Time" in ln), None),
+        baseline=dict(solved=int(base.group(1)), total=int(base.group(2)),
+                      mean_iters=float(base.group(3)),
+                      ms_per_instance=float(base.group(4))),
+        launches={k: v for k, v in launches.items() if v},
+        stack_vs_per_batch=stack, gap_always_vs_never=gaps,
+        controls={name: dict(gap_vs_never=fault_gaps[name],
+                             train_s=r["train_s"])
+                  for name, r in controls.items()},
+        tol=(f"first-epoch train loss and train objective, preload "
+             f"'always' vs 'never': {CANON_LOSS_RTOL:g} relative, the "
+             f"fused route's loss bitwise; each stack bitwise the "
+             f"per-batch scaled batches in its dtypes; each control past "
+             f"{CANON_LOSS_RTOL:g} in the loss or the objective"))
+    say("r canonical QP", **row)
+    for route in ("step", "fused"):
+        if not stack[route]["bitwise"]:
+            raise PhaseError(f"r {route}: the stack differs from the "
+                             f"per-batch scaled batches: {stack[route]}")
+        for k, g in gaps[route].items():
+            if not g <= CANON_LOSS_RTOL:
+                raise PhaseError(f"r {route}: {k} gap {g:.3e} always vs "
+                                 f"never exceeds {CANON_LOSS_RTOL:g}")
+    if gaps["fused"]["train_loss"] != 0.0:
+        raise PhaseError(f"r fused: loss gap {gaps['fused']['train_loss']:.3e}"
+                         f" always vs never over bitwise-equal operands")
+    for name, g in fault_gaps.items():
+        if not max(g.values()) > CANON_LOSS_RTOL:
+            raise PhaseError(f"r control '{name}': a faulty stack moves the "
+                             f"step route only {g}, inside the gate")
+    if row["baseline"]["solved"] != row["baseline"]["total"]:
+        raise PhaseError(f"r: the baseline solved {row['baseline']}")
+    report["canonical"] = row
+    shutil.rmtree(CANON_DIR, ignore_errors=True)
+    return launches
+
+
 # Rows 3, 3d, 3c of PERF.md §6: one N=20 call of each Stage-II solver at
 # B=8 from the serving rollout's iterates (as phases (c) and (q))
 STAGE2_ROWS = (
@@ -3221,6 +3562,14 @@ def main(argv=()) -> int:
     # Stage II's condensed-system solvers, from (b)'s rollout iterates
     q = phase_condensed(params, data_b, sc, xyz, requests, report)   # (q)
     say("condensed Stage II path launches", **q)
+    del requests
+    torch.cuda.empty_cache()
+
+    # The canonical QP workload through the CLIs, its data layer included
+    r = phase_canonical(report)                                      # (r)
+    cell_all += r["cell"]
+    say("canonical workload path launches",
+        **{k: v for k, v in r.items() if v})
 
     def entry(name, src, replaces, key, launches):
         r = report[key]
@@ -3274,7 +3623,7 @@ def main(argv=()) -> int:
               "iadmm_tpu/kernels/rollout_kernel.py:56", "rollout", roll_all),
         entry("stage2_kkt", "iadmm_tpu_torch/kernels/csrc/stage2.cu",
               "iadmm_tpu/kernels/stage2_kernel.py:59", "stage2", s2_all),
-        *train_entries("", "train_kernels", g),
+        *train_entries("", "train_kernels", {k: g[k] + r[k] for k in g}),
         dict(name="bsr_matvec", route="cuda",
              source="iadmm_tpu_torch/kernels/csrc/bsr_matvec.cu",
              replaces="iadmm_tpu/kernels/sparse_matvec.py:116",

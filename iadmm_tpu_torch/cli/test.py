@@ -1,16 +1,17 @@
 """Test / inference CLI of the port.
 
-Loads the ``.npz`` dataset at ``<data_root>/<run-keyed name>.npz`` and the
-run-keyed ``.pkl`` checkpoint (either package's), evaluates the test split
-with per-iteration traces (:func:`iadmm_tpu_torch.evaluation.driver.run_test`),
-with the Stage-II polish under ``--feas_rest``, and exports the traces
-with ``--export`` (or ``--save_sol``):
+Loads the dataset (``<data_root>/<run-keyed name>.npz``, or the
+reference's gz-pickle layout) and the run-keyed ``.pkl`` checkpoint (either
+package's), evaluates the test split with per-iteration traces
+(:func:`iadmm_tpu_torch.evaluation.driver.run_test`), with the Stage-II
+polish under ``--feas_rest``, exports the traces with ``--export`` (or
+``--save_sol``) and, with ``--baseline osqp``, solves the same test split
+with the QP oracle on the host (``run_osqp_baseline``):
 
     python -m iadmm_tpu_torch.cli.test --config configs/qp_small.yaml \\
         --data_root <dir> --export traces.mat
 
-Runs on the GPU unless ``--device cpu`` is given.  ``--baseline osqp``
-is not ported: it needs the QP oracle (see ROADMAP.md).
+Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ def main(argv=None) -> int:
                    help="torch device to evaluate on (default cuda)")
     args = p.parse_args(argv)
     cfg = parse_config(args)
-    if args.baseline == "osqp":
-        run_osqp_baseline(cfg, None)
 
     ds = load_dataset(cfg.data_root, cfg.prob_type, cfg.num_var,
                       cfg.num_ineq, cfg.num_eq, cfg.qplib_num,
@@ -54,6 +53,8 @@ def main(argv=None) -> int:
             cfg.save_dir, cfg.model_name, cfg.run_name() + ".mat")
         export_traces(report, out)
         print(f"traces -> {out}")
+    if args.baseline == "osqp":
+        run_osqp_baseline(cfg, ds, verbose=True)
     return 0
 
 

@@ -7,11 +7,10 @@ packages.  Unknown keys raise.
 The port accepts every key of the JAX package.  Some select routes it has
 not ported; :meth:`ExperimentConfig.check_ported` raises
 ``NotImplementedError`` for a value that needs one (see ROADMAP.md).
-``epoch_scan`` and ``preload`` choose how the JAX package dispatches an
-epoch and where it keeps the train split; the port runs its per-batch
-route whatever they say, and reads ``preload`` only on the sparse route
-(``'never'`` tiles each batch when it is used, anything else tiles the
-train split once).
+``preload`` and ``preload_dtype`` keep the train split on the device as
+the JAX package does (``train/harness.py``); ``epoch_scan`` chooses how
+the JAX package dispatches an epoch over that stack, and the port
+dispatches batch by batch whatever it says.
 """
 
 from __future__ import annotations
@@ -89,10 +88,10 @@ class ExperimentConfig:
     matvec_mode: str = "highest"    # KKT-feature matvecs: highest|default|bf16
     remat: bool = False             # recompute each step in the backward
     resume: bool = False            # resume training from the run checkpoint
-    preload: str = "auto"           # JAX: train split on device once; the
-                                    # port: the sparse tile cache unless
-                                    # 'never'
-    preload_dtype: str = "float32"  # Q/A0 storage of the preloaded stack
+    preload: str = "auto"           # train split on device once:
+                                    # auto|always|never
+    preload_dtype: str = "float32"  # Q/A0 storage of the preloaded stack:
+                                    # float32|bfloat16
     train_hours: float = 0.0        # wall-clock training budget (0 = off)
     train_backend: str = "step"     # 'fused' = the training kernels
                                     # (kernels/train_rollout.py)
@@ -127,8 +126,8 @@ class ExperimentConfig:
                             f"{self.sparse_format!r} (the BCOO route)")
         if self.theory:
             unported.append("theory=True (the theory-condition traces)")
-        if self.preload_dtype != "float32":
-            unported.append(f"preload_dtype={self.preload_dtype!r}")
+        if self.preload_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown preload_dtype {self.preload_dtype!r}")
         if self.train_backend not in ("step", "fused"):
             raise ValueError(f"unknown train_backend {self.train_backend!r}")
         if unported:

@@ -16,10 +16,11 @@ Counterpart of ``TestReport``, ``run_test`` and ``export_traces`` in
     tile-sparse route (:mod:`iadmm_tpu_torch.kernels.sparse`), whose tiling
     happens on the host outside the timed region;
   * ``export_traces`` writes the JAX package's keys, ``.mat`` (scipy) or
-    ``.npz``.
+    ``.npz``;
+  * ``run_osqp_baseline`` solves the test split with the QP oracle on the
+    host (the classical-solver baseline).
 
-Not ported: the OSQP baseline (it needs the QP oracle), the theory traces
-and the multi-device mesh (see ROADMAP.md).
+Not ported: the theory traces and the multi-device mesh (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -299,9 +300,70 @@ def export_traces(report: TestReport, path: str) -> None:
 
 
 def run_osqp_baseline(cfg: ExperimentConfig, ds: RawDataset,
-                      test_ids: Optional[np.ndarray] = None, **kwargs):
-    """The classical-solver baseline needs the QP oracle, which is not
-    ported yet."""
-    raise NotImplementedError(
-        "the OSQP baseline needs the QP oracle, which is not ported to "
-        "PyTorch yet; see ROADMAP.md (Queue 1, the QP oracle)")
+                      test_ids: Optional[np.ndarray] = None,
+                      warm_start: bool = True, eps: float = 1e-4,
+                      verbose: bool = True, backend: str = "auto") -> Dict:
+    """Classical-solver baseline: solve each test instance with the
+    OSQP-algorithm oracle on the host, reporting mean solve time, iteration
+    count, solved count and mean objective (the JAX package's keys).
+
+    ``backend='native'`` (the 'auto' default when the C++ library builds)
+    runs the whole test set through the native OpenMP batch solver
+    (``native/qp_oracle.cpp``), all host cores in one call; ``'python'``
+    solves the instances one after another with :func:`solve_qp`, each
+    warm-started from the previous solution when ``warm_start``."""
+    from ..problems import oracle
+    if test_ids is None:
+        _, _, test_ids = split_ids(cfg.data_size, cfg.val_frac,
+                                   cfg.test_frac, cfg.seed)
+    if backend == "auto":
+        from .. import native
+        backend = "native" if native.available() else "python"
+    if backend == "native":
+        sub = ds.slice(np.asarray(test_ids))
+        t0 = time.perf_counter()
+        x, y, iters, status = oracle.solve_native(sub, eps)
+        wall = time.perf_counter() - t0
+        Q2 = 2.0 * (sub.Q if sub.Q.shape[0] > 1
+                    else np.repeat(sub.Q, sub.size, 0))
+        p_ = sub.p if sub.p.shape[0] > 1 else np.repeat(sub.p, sub.size, 0)
+        objs = 0.5 * np.einsum("bi,bij,bj->b", x, Q2, x) \
+            + np.einsum("bi,bi->b", p_, x)
+        out = dict(mean_time=wall / sub.size,
+                   mean_iters=float(np.mean(iters)),
+                   solved=int((np.asarray(status) == 0).sum()),
+                   total=int(sub.size), mean_obj=float(np.mean(objs)),
+                   backend="native-openmp-batch")
+        if verbose:
+            print(f"OSQP-baseline (native batch): {out['solved']}/"
+                  f"{out['total']} solved | mean {out['mean_iters']:.1f} "
+                  f"iters | mean {out['mean_time'] * 1e3:.2f} ms/instance "
+                  f"| mean obj {out['mean_obj']:.4f}")
+        return out
+    times, iters, objs, solved = [], [], [], 0
+    x0 = y0 = None
+
+    def sh(a, i):  # dim-1 leading axis = shared data (QP_RHS family)
+        return a[i if a.shape[0] > 1 else 0]
+
+    for i in test_ids:
+        P = sh(ds.Q, i) * 2.0
+        t0 = time.perf_counter()
+        r = oracle.solve_qp(P, sh(ds.p, i), sh(ds.A0, i), ds.zl[i],
+                            ds.zu[i], eps_abs=eps, eps_rel=eps,
+                            x0=x0 if warm_start else None,
+                            y0=y0 if warm_start else None)
+        times.append(time.perf_counter() - t0)
+        iters.append(r.iters)
+        solved += int(r.solved)
+        objs.append(0.5 * r.x @ P @ r.x + sh(ds.p, i) @ r.x)
+        if warm_start:
+            x0, y0 = r.x, r.y
+    out = dict(mean_time=float(np.mean(times)), mean_iters=float(np.mean(iters)),
+               solved=solved, total=len(test_ids), mean_obj=float(np.mean(objs)))
+    if verbose:
+        print(f"OSQP-baseline: {solved}/{len(test_ids)} solved | "
+              f"mean {out['mean_iters']:.1f} iters | "
+              f"mean {out['mean_time'] * 1e3:.2f} ms/instance | "
+              f"mean obj {out['mean_obj']:.4f}")
+    return out

@@ -1,17 +1,20 @@
 """Dataset storage, the train/val/test split and conversion to a device
 ``QPBatch``.
 
-Counterpart of ``save_npz``/``load_npz``, ``dataset_path``,
-``load_dataset``, ``to_qp_batch`` and ``split_ids`` in
-``iadmm_tpu/problems/io.py``.  A dataset is one stacked ``.npz``; both
-packages read the files the other writes.  The reference's per-instance
-gz-pickle directories, QPLIB and the ``MM_*`` families are not ported yet.
+Counterpart of ``iadmm_tpu/problems/io.py``.  A dataset is one stacked
+``.npz``; both packages read the files the other writes.  The reference's
+per-instance gz-pickle layout is read and written too
+(:func:`load_reference_gz_dir`, :func:`save_reference_gz_dir`): the
+``QPLIB`` and ``MM_*`` families exist only in it.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
+import pickle
 import random
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -111,22 +114,118 @@ def dataset_path(root: str, prob_type: str, num_var: int,
 def load_dataset(root: str, prob_type: str, num_var: int = 0,
                  num_ineq: int = 0, num_eq: int = 0, qplib_num: int = 0,
                  data_size: int = 1000) -> RawDataset:
-    """The stacked ``.npz`` at :func:`dataset_path`.  The JAX package's
-    other sources (QPLIB, ``MM_*``, the reference's gz-pickle directories)
-    raise ``NotImplementedError``."""
-    if prob_type == "QPLIB" or prob_type.startswith("MM_"):
-        raise NotImplementedError(
-            f"loading {prob_type} (reference gz-pickle instances) is not "
-            f"ported to PyTorch yet; see ROADMAP.md (Queue 1, data layer)")
+    """The stacked ``.npz`` at :func:`dataset_path` if present, else the
+    reference's per-instance gz-pickle directory beside it, including the
+    ``QPLIB`` family (``<root>/QPLIB_<num>/qplib_<num>_<i>.gz``) and the
+    ``MM_*`` families (``<root>/MM_<NAME>/<name>_<i>.gz``), which exist
+    only in that layout.  Unpickling runs code: load only files this
+    project or the reference wrote."""
+    if prob_type == "QPLIB":
+        d = os.path.join(root, f"QPLIB_{qplib_num}")
+        return load_reference_gz_dir(d, f"qplib_{qplib_num}",
+                                     range(data_size))
+    if prob_type.startswith("MM_"):
+        # Maros-Mészáros perturbation families: e.g. MM_MOSARQP2 ->
+        # <root>/MM_MOSARQP2/mosarqp2_<i>.gz
+        d = os.path.join(root, prob_type)
+        return load_reference_gz_dir(d, prob_type[3:].lower(),
+                                     range(data_size))
     path = dataset_path(root, prob_type, num_var, num_ineq, num_eq)
     if os.path.exists(path):
         return load_npz(path)
-    d = os.path.splitext(path)[0]
+    # reference directory layout: <root>/<name>/<prob_type_lowercase>_<i>.gz
+    # ('qp_{}.gz', 'equality_qp_{}.gz', ...)
+    name = os.path.splitext(os.path.basename(path))[0]
+    d = os.path.join(root, name)
     if os.path.isdir(d):
-        raise NotImplementedError(
-            f"{d} is a reference gz-pickle directory; its loader is not "
-            f"ported to PyTorch yet; see ROADMAP.md (Queue 1, data layer)")
-    raise FileNotFoundError(f"no dataset at {path}")
+        return load_reference_gz_dir(d, prob_type.lower(), range(data_size))
+    raise FileNotFoundError(f"no dataset at {path} or {d}")
+
+
+def save_reference_gz_dir(ds: RawDataset, data_dir: str,
+                          prefix: str) -> None:
+    """Export a RawDataset to the reference's per-instance gzip-pickle
+    layout (payload: 2-D Q/A0, column vectors p/c/b/zl/zu, flat
+    ground-truth x/y), so reference tooling can train and evaluate on
+    datasets produced here.
+
+    Non-QP/QP_RHS families are stored as scipy CSC: the reference's loader
+    calls ``.toarray()`` on every field for those prob_types, so dense
+    payloads would crash it."""
+    os.makedirs(data_dir, exist_ok=True)
+    as_sparse = ds.prob_type not in ("QP", "QP_RHS")
+    if as_sparse:
+        import scipy.sparse as sps
+
+    def sh(a, i):  # shared leading dim (QP_RHS) broadcasts
+        return a[i if a.shape[0] > 1 else 0]
+
+    col = lambda v: np.asarray(v, np.float64)[:, None]
+    derive_box = (ds.G is None
+                  and ds.prob_type.lower() in ("random_qp", "sparse_qp"))
+    for i in range(ds.size):
+        d = {"Q": np.asarray(sh(ds.Q, i), np.float64),
+             "p": col(sh(ds.p, i)),
+             "A0": np.asarray(sh(ds.A0, i), np.float64),
+             "zl": col(ds.zl[i]), "zu": col(ds.zu[i])}
+        if derive_box:
+            # reference pickles store the materialised two-sided view
+            d["G"] = np.concatenate([d["A0"], -d["A0"]])
+            d["c"] = np.concatenate([col(ds.zu[i]), -col(ds.zl[i])])
+        for k, squeeze in (("G", False), ("A", False), ("c", True),
+                           ("b", True), ("lb", True), ("ub", True)):
+            v = getattr(ds, k)
+            if v is not None:
+                d[k] = col(sh(v, i)) if squeeze else np.asarray(
+                    sh(v, i), np.float64)
+        if as_sparse:
+            d = {k: sps.csc_matrix(v) for k, v in d.items()}
+        if ds.x_opt is not None:
+            d["x"] = np.asarray(ds.x_opt[i], np.float64)
+            d["y"] = np.asarray(ds.y_opt[i], np.float64)
+        with gzip.open(os.path.join(data_dir, f"{prefix}_{i}.gz"),
+                       "wb") as f:
+            pickle.dump(d, f)
+
+
+def load_reference_gz_dir(data_dir: str, prefix: str,
+                          ids: Sequence[int]) -> RawDataset:
+    """Load reference-format per-instance gzip pickles
+    ``<data_dir>/<prefix>_<i>.gz``.  Sparse families store scipy CSC
+    matrices, which are densified on load, as the reference does."""
+    def dense(v):
+        return v.toarray() if hasattr(v, "toarray") else np.asarray(v)
+
+    fields: dict = {k: [] for k in
+                    ("Q", "p", "A0", "zl", "zu", "G", "c", "A", "b",
+                     "lb", "ub", "x", "y")}
+    present = {k: True for k in fields}
+    for i in ids:
+        path = os.path.join(data_dir, f"{prefix}_{i}.gz")
+        with gzip.open(path, "rb") as f:
+            d = pickle.load(f)
+        for k in fields:
+            if k in d:
+                fields[k].append(dense(d[k]))
+            else:
+                present[k] = False
+
+    def stack(k, squeeze=False):
+        if not present[k] or not fields[k]:
+            return None
+        arr = np.stack(fields[k]).astype(np.float64)
+        if squeeze and arr.ndim == 3 and arr.shape[-1] == 1:
+            arr = arr[..., 0]
+        return arr
+
+    return RawDataset(
+        prob_type=prefix,
+        Q=stack("Q"), p=stack("p", True), A0=stack("A0"),
+        zl=stack("zl", True), zu=stack("zu", True),
+        G=stack("G"), c=stack("c", True), A=stack("A"), b=stack("b", True),
+        lb=stack("lb", True), ub=stack("ub", True),
+        x_opt=stack("x", True), y_opt=stack("y", True),
+    )
 
 
 def to_qp_batch(ds: RawDataset, idx=None, dtype=torch.float32,

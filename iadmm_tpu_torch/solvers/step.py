@@ -25,14 +25,16 @@ RHO_EQ_OVER_RHO_INEQ = 1e3
 
 def _matvec_operands(M, v, mode: Optional[str]):
     """Operands of a matvec in ``mode``: 'bf16' rounds both to bf16 and
-    sums in float32; None/'highest'/'default' keep the native dtype (a
-    float32 product on CUDA runs in full float32 with TF32 off, PyTorch's
-    default for matmul)."""
+    sums in float32; None/'highest'/'default' promote both to the wider of
+    their dtypes, as ``jnp.einsum`` does (a bf16-stored Q meets a float32
+    vector in float32; a float32 product on CUDA runs in full float32 with
+    TF32 off, PyTorch's default for matmul)."""
     if mode == "bf16":
         return cells.bf16_round(M), cells.bf16_round(v)
     if mode not in (None, "highest", "default"):
         raise ValueError(f"unknown matvec mode {mode!r}")
-    return M, v.to(M.dtype)
+    dt = torch.promote_types(M.dtype, v.dtype)
+    return M.to(dt), v.to(dt)
 
 
 def bmv(M: torch.Tensor, v: torch.Tensor, mode: Optional[str] = None):

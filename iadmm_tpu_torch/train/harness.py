@@ -15,15 +15,24 @@ rollback, a ``_latest`` checkpoint every 10 epochs and at exit, and a JSONL
 
 ``train_backend='step'`` differentiates ``chunk_loss`` over the learned
 step (the cell kernel with ``use_pallas``); ``'fused'`` uses the training
-kernels of :mod:`iadmm_tpu_torch.kernels.train_rollout`.  ``sparse=True``
-with ``sparse_format='bsr'`` trains over tile-sparse problem data
+kernels of :mod:`iadmm_tpu_torch.kernels.train_rollout`.
+
+Dense data is preloaded as the JAX package preloads it
+(:mod:`iadmm_tpu_torch.train.preload`): ``preload='always'``, or
+``'auto'`` when one copy of the scaled train split fits
+:func:`~iadmm_tpu_torch.train.preload.device_memory_budget`, scales the
+train split once into a device stack (Q and A0 in ``preload_dtype``; Q as
+its float32 diagonal when every Hessian is diagonal, the route is not
+``'fused'`` and preload is not ``'never'``), and each batch is an index
+into it; ``'never'`` converts and scales each batch when it is used.
+``epoch_scan=True`` dispatches batch by batch over the stack: the JAX
+package's whole-epoch scan steps the optimizer once a chunk as well, so
+the updates are the same.  ``sparse=True`` with ``sparse_format='bsr'``
+trains over tile-sparse problem data
 (:mod:`iadmm_tpu_torch.kernels.sparse`, the BSR matvec kernel): the train
-split is scaled and tiled once into a device cache
-(:mod:`iadmm_tpu_torch.train.preload`), or per batch with
-``preload='never'``; validation stays dense.  Not ported: the whole-epoch
-scan and the preloaded dense train stack (``epoch_scan`` and ``preload``
-are accepted and the per-batch route runs), the TPU-worker crash recovery,
-the BCOO route and the mesh paths (see ROADMAP.md).
+split is scaled and tiled once into a device cache, or per batch with
+``preload='never'``; validation stays dense.  Not ported: the TPU-worker
+crash recovery, the BCOO route and the mesh paths (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -49,7 +58,9 @@ from ..types import IterState, init_state
 from ..utils.logging import RunLog
 from . import checkpoint as ckpt
 from .early_stopping import EarlyStopping
-from .preload import preload_sparse_cache
+from .preload import (dataset_q_is_diagonal, device_memory_budget,
+                      index_stack, preload_sparse_cache, preload_train_stack,
+                      train_stack_bytes)
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> None:
@@ -313,13 +324,40 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
     history = []
     epochs_run = 0
 
+    # Dense route: scale the train split once into a device stack (see the
+    # module docstring); preload='never' scales each batch when it is used.
+    n_used = n_batches * cfg.batch_size
+    stacked = cost_stack = None
+    dtype_bytes = 2 if cfg.preload_dtype == "bfloat16" else 4
+    # Diagonal-Hessian families store Q as its diagonal; the fused training
+    # kernels read a dense Q, so that route keeps dense storage.
+    diag_q = (not cfg.sparse and cfg.preload != "never"
+              and cfg.train_backend != "fused"
+              and dataset_q_is_diagonal(ds))
+    train_bytes = train_stack_bytes(ds, n_used, dtype_bytes, diag_q=diag_q)
+    auto = not cfg.sparse and cfg.preload == "auto"
+    fits = auto and train_bytes < device_memory_budget(device)
+    if auto and not fits and verbose:
+        print(f"train split ({train_bytes / 1e9:.4f} GB scaled) over the "
+              f"preload budget: per-batch route", flush=True)
+    if not cfg.sparse and (cfg.preload == "always" or fits):
+        stacked, cost_stack = preload_train_stack(
+            ds, train_ids[:n_used], n_batches, cfg.batch_size, cfg, scale,
+            device=device, diag_q=diag_q)
+        runlog.log("preload", bytes=train_bytes, diag_q=diag_q,
+                   dtype=cfg.preload_dtype)
+        if verbose:
+            print(f"preloaded train split: {train_bytes / 1e9:.4f} GB "
+                  f"scaled-only on {device}"
+                  + (" (diagonal-Q storage)" if diag_q else ""), flush=True)
+
     # Sparse route: scale and tile the train split once into a device
     # cache; preload='never' converts each batch when it is used.
     sparse_cache = None
     if cfg.sparse and cfg.preload != "never":
         sparse_cache = preload_sparse_cache(
-            ds, train_ids[:n_batches * cfg.batch_size], n_batches,
-            cfg.batch_size, cfg, scale, device=device, verbose=verbose)
+            ds, train_ids[:n_used], n_batches, cfg.batch_size, cfg, scale,
+            device=device, verbose=verbose)
 
     t_begin = time.time()
     epoch = start_epoch
@@ -334,6 +372,10 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
         for bi in range(n_batches):
             if sparse_cache is not None:
                 data, cost = sparse_cache[bi]
+                chunk_data = data
+            elif stacked is not None:
+                data, cost = index_stack(stacked, cost_stack, bi,
+                                         cfg.batch_size)
                 chunk_data = data
             else:
                 ids = train_ids[bi * cfg.batch_size:

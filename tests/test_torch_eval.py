@@ -139,8 +139,6 @@ def test_run_test_rejects_unported(tmp_path):
             tdriver.run_test(tconfig.ExperimentConfig(**_cfg(tmp_path,
                                                              **extra)),
                              ds, jp, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.run_osqp_baseline(tconfig.ExperimentConfig(), ds)
 
 
 @pytest.mark.parametrize("ext", [".npz", ".mat"])
@@ -191,8 +189,9 @@ def test_cli_test_runs_on_a_checkpoint(tmp_path, capsys):
     assert "Stage II" in printed and f"traces -> {out}" in printed
     with np.load(out) as f:
         assert f["objs"].shape == (6,) and f["stage2_obj"].shape == (5,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(args + ["--baseline", "osqp"])
+    assert tcli.main(args + ["--baseline", "osqp"]) == 0
+    assert "OSQP-baseline (native batch): 4/4 solved" in \
+        capsys.readouterr().out
 
 
 def test_trace_shapes_follow_the_iteration_count(tmp_path):
