@@ -9,8 +9,9 @@ at Sparse_QP_Large (n=4096, 1024 box rows, h=128, K=50), four at the
 flagship's float32 precision profile (``configs/qp_1000_500_500.yaml``:
 float32 gates, float32 matvecs), two on the segment-recompute training
 route, which the shipped config takes from ``--batch_size 9``, one on
-Stage II's condensed-system solvers and one on the canonical QP workload
-of ``scripts/run_workload.py``:
+Stage II's condensed-system solvers, one on the canonical QP workload
+of ``scripts/run_workload.py`` and three on the remaining single-device
+routes (the ghost cells, the theory traces, the BCOO sparse route):
 
   (a) the cell kernel against its plain version (B=8, S=2000, h=800, bf16),
       on a ragged small case and on a ragged one at the flagship's width
@@ -142,7 +143,29 @@ of ``scripts/run_workload.py``:
       'fused' where the stack equals the per-batch scaled batches
       bitwise, which is reported); the labelling time, the host CPU, the
       stack's bytes and the budget, each epoch's seconds and peak device
-      memory are printed.
+      memory are printed;
+  (s) the ghost cells (gru, safeguard_lstm, multi_layer_lstm, gd,
+      indirect_lstm) at QP 1000/500/500, h=800, float32: for each, one
+      epoch of ``harness.train`` (4 chunk updates of B=2 at J=100;
+      multi_layer_lstm, 5 cells a step, at J=20), ``run_test`` at K=100,
+      B=10, every loss and trace finite; the float32 K=6 rollout against
+      the float64 one on the card (GHOST_F32_RTOL, or 4x the rollout's
+      own gap under a hidden-unit permutation where that is larger), and
+      two controls (GHOST_FAULTS) that must miss that limit;
+  (t) ``cli.test --theory --export`` on (r)'s dataset and step checkpoint
+      at the canonical bf16 profile (K=100): the exported traces' shapes,
+      t=0 NaN and finiteness, the cell kernel launched for the evaluation
+      and the theory rollouts, the theory rollout's iterates bitwise the
+      evaluation rollout's, sigma_Q_max and sigma_AA_min against float64
+      numpy with cond(A0ᵀA0) reported;
+  (u) the BCOO route at ``scripts/run_workload.py``'s Sparse_QP (n=1000,
+      500 box rows, h=400, K=100, B=2, test B=10, bf16 matvecs):
+      ``cli.train`` (one epoch) and ``cli.test``, twice, bitwise equal,
+      no kernel launched; ``run_test`` on the BSR route (float32 tiles:
+      the first 6 steps to 1e-3, K=100 to 4x the BCOO route's own
+      permuted gap; bf16 tiles: 1e-2); each BCOO matvec's device time
+      beside the BSR kernel's; the device's busy share of a chunk update
+      and of a test rollout.
 
 Each phase prints its errors, tolerance, times and launch counts; any
 failure exits non-zero.  Launch counters are zeroed just before each main
@@ -150,9 +173,9 @@ path and read just after it: (d) and (e) (serving), (g) (training), (j)'s
 training and its ``run_test`` on the two routes (the sparse path), (m)'s
 three CLI runs (the shipped config), (n) (float32 serving) and each of
 (p)'s two CLI runs (the segment route), (q)'s ``fused_stage2(solver='cg')``
-and its two ``make_solver`` runs (the condensed Stage II), and (r)'s
+and its two ``make_solver`` runs (the condensed Stage II), (r)'s
 generation, two preloaded epochs and ``cli.test`` (the canonical
-workload).  The
+workload), (t)'s ``cli.test --theory`` and (u)'s CLI runs.  The
 second-to-last line is the per-kernel JSON, the last line ``{"ok": true,
 "device": {...}}``.  Weights are random from a seed (no trained checkpoint
 is in the repository).  Exits non-zero without a CUDA device.  Longer
@@ -500,7 +523,8 @@ def permute_hidden(params, perm):
     hidden units run in another order."""
     import torch
     h = len(perm)
-    cols = torch.cat([g * h + perm for g in range(4)])
+    cols = torch.cat([g * h + perm
+                      for g in range(params["W"].shape[1] // h)])
     return dict(params, W=params["W"][:, cols],
                 U=params["U"][perm][:, cols], b=params["b"][cols],
                 W_h=params["W_h"][perm])
@@ -2914,7 +2938,8 @@ def phase_canonical(report):
     then the same epochs at preload='never' for the gate, and the gate's
     controls (CANON_FAULTS) on the step route.  Returns the
     launches of the main path (generation, the two preloaded epochs and
-    the evaluation)."""
+    the evaluation) and what (t) evaluates: the CLI flags, the step run's
+    directory and checkpoint, the dataset and its config."""
     import dataclasses
     import re
     import numpy as np
@@ -3120,7 +3145,559 @@ def phase_canonical(report):
     if row["baseline"]["solved"] != row["baseline"]["total"]:
         raise PhaseError(f"r: the baseline solved {row['baseline']}")
     report["canonical"] = row
-    shutil.rmtree(CANON_DIR, ignore_errors=True)
+    # (t) evaluates the step run's checkpoint on this dataset; main() removes
+    # CANON_DIR after it
+    return launches, dict(common=common, save_dir=runs[("step", "always")]
+                          ["dir"], load=load, ds=ds, cfg=cfg)
+
+
+# (s): the ghost cells (the reference's ablations) at the flagship's width
+GHOST_DIR = os.path.join(ROOT, "results", "chip_smoke_ghost")
+GHOST_CELLS = ("gru", "safeguard_lstm", "multi_layer_lstm", "gd",
+               "indirect_lstm")
+# 20 generated instances: 8 train (4 chunk updates of B=2), 2 val, 10 test
+GHOST_DATA, GHOST_VAL, GHOST_TEST, GHOST_TEST_B = 20, 0.1, 0.5, 10
+# multi_layer_lstm applies the cell 5 times a step: at J=100 autograd would
+# keep ~75 GB; it trains in chunks of 20 steps (5 chunk updates a batch)
+GHOST_J = dict(multi_layer_lstm=20)
+# The card's float32 K=6 rollout against the card's float64 one, each state
+# field's gap over max(1, max|ref|), to the larger of GHOST_F32_RTOL
+# (tests/test_torch_ghost.py's F32_K6_RTOL, which holds the CPU's float32
+# rollout to float64) and MAX_GAP_OVER_ROUNDING x the float32 rollout's own
+# gap with its hidden units permuted.  At this width indirect_lstm's float32
+# rollout is ill-conditioned: its feature g = M(Mx̃ − rhs) carries
+# rho_eq·A0ᵀA0 twice, and gates near 0 flip (the CPU measured 1.9e-2 on H,
+# its permuted run 1.6e-2; the other cells <= 1.5e-5, y)
+GHOST_F32_RTOL = 5e-4
+# The gate's controls, each a faulty step that must miss GHOST_F32_RTOL:
+# safeguard_lstm with α = 2σ(0) = 1.0 (an alpha schedule of zeros) in place
+# of the fixed 1.6, and indirect_lstm with the ν block A0ᵀdiag(ρ)A0 dropped
+# from its reduced matrix M
+GHOST_FAULTS = ("safeguard_lstm alpha=2*sigmoid(0)",
+                "indirect_lstm M without the nu block")
+
+
+def ghost_k6(name, params, data, faulty=None, perm=None):
+    """{field: gap} of the port's float32 K=6 rollout of cell ``name``
+    against its float64 one, both on the card, from ``params``: max |f32 −
+    f64| / max(1, max |f64|).  ``faulty`` runs one of GHOST_FAULTS in the
+    float32 rollout; ``perm`` runs it with the hidden units permuted (its
+    own rounding: the same function, float32 sums in another order)."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+    import torch
+    from iadmm_tpu_torch.solvers import rollouts, step as S
+    from iadmm_tpu_torch.types import init_state
+    spec = S.get_cell(name)
+    B, n, m = data.batch, data.num_var, data.num_constr
+    p32 = dict(params)
+    if perm is not None:
+        p32 = permute_hidden(p32, perm)
+    patch = contextlib.nullcontext()
+    if faulty == GHOST_FAULTS[0]:
+        p32["alpha"] = torch.zeros_like(params["rho"])
+    elif faulty == GHOST_FAULTS[1]:
+        def no_nu_block(d, x, y, z, sigma, rho_vec):
+            def matvec_M(v):
+                return S.bmv(d.Q, v) + sigma * v
+            return matvec_M, sigma * x - d.p + S.bmv_t(d.A0,
+                                                        rho_vec * z - y)
+        patch = mock.patch.object(S, "indirect_system", no_nu_block)
+    st32 = init_state(B, n, m, HIDDEN, device=DEV)
+    with torch.no_grad():
+        with patch:
+            a = rollouts.rollout(spec.step, p32, st32, data, SIGMA, K_CHECK)
+        b = rollouts.rollout(spec.step, {k: v.double()
+                                         for k, v in params.items()},
+                             data_as(st32, torch.float64),
+                             data_as(data, torch.float64), SIGMA, K_CHECK)
+    if perm is not None:   # the permuted network's unit j is unit perm[j]
+        b = dataclasses.replace(b, H=b.H[..., perm], C=b.C[..., perm])
+    return {f: float((getattr(a, f).double() - getattr(b, f)).abs().max()
+                     / max(1.0, float(getattr(b, f).abs().max())))
+            for f in ("x", "y", "z", "xv", "H", "C")}
+
+
+def phase_ghost(report):
+    """(s): each ghost cell at QP 1000/500/500, h=800, float32: one epoch of
+    ``harness.train`` (4 chunk updates of B=2, J=100, or J=20 for
+    multi_layer_lstm), ``run_test`` at K=100, B=10 on its parameters, every
+    trace finite; the float32 K=6 rollout held to the float64 one on the
+    card at GHOST_F32_RTOL, and GHOST_FAULTS missing it."""
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.config import ExperimentConfig
+    from iadmm_tpu_torch.evaluation.driver import run_test
+    from iadmm_tpu_torch.problems import generate
+    from iadmm_tpu_torch.problems.io import split_ids
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.step import get_cell
+    from iadmm_tpu_torch.train.harness import train
+    shutil.rmtree(GHOST_DIR, ignore_errors=True)
+    n_train = len(split_ids(GHOST_DATA, GHOST_VAL, GHOST_TEST, 17)[0])
+    t0 = time.perf_counter()
+    ds = generate("QP", num_var=N_VAR, num_ineq=N_INEQ, num_eq=N_EQ,
+                  data_size=GHOST_DATA, seed=43)
+    gen_s = time.perf_counter() - t0
+    data, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=44))
+    perm = torch.randperm(HIDDEN, generator=torch.Generator().manual_seed(3))
+    rows, faults = {}, {}
+    for name in GHOST_CELLS:
+        J = GHOST_J.get(name, K_ITERS)
+        cfg = ExperimentConfig(
+            prob_type="QP", num_var=N_VAR, num_ineq=N_INEQ, num_eq=N_EQ,
+            data_size=GHOST_DATA, model_name=name, hidden_dim=HIDDEN,
+            sigma=SIGMA, outer_T=K_ITERS, truncated_length=J,
+            batch_size=TRAIN_BATCH, lr=5e-5, num_epoch=1,
+            val_frac=GHOST_VAL, test_frac=GHOST_TEST, eq_tol=1e9,
+            test_outer_T=K_ITERS, test_batch_size=GHOST_TEST_B,
+            save_dir=os.path.join(GHOST_DIR, name))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train(cfg, ds, verbose=False, device=DEV)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated()
+        if any(v.device.type != torch.device(DEV).type
+               for v in res.params.values()):
+            raise PhaseError(f"s {name}: parameters left the card")
+        t0 = time.perf_counter()
+        rep = run_test(cfg, ds, res.params, verbose=False, device=DEV)
+        test_s = time.perf_counter() - t0
+        traces = [rep.obj, rep.ls_res, rep.primal_res, rep.dual_res,
+                  *rep.violations.values()]
+        hist = res.history[0]
+        if not (np.isfinite(hist["train_loss"]) and all(
+                np.isfinite(t).all() for t in traces)):
+            raise PhaseError(f"s {name}: non-finite loss or trace")
+        if rep.test_size != GHOST_TEST_B:
+            raise PhaseError(f"s {name}: test size {rep.test_size}")
+        p0 = get_cell(name).init(torch.Generator().manual_seed(7), 2, HIDDEN,
+                                 K_ITERS, device=DEV)
+        gaps = ghost_k6(name, p0, data)
+        own = ghost_k6(name, p0, data, perm=perm) if "W" in p0 else {}
+        limit = max([GHOST_F32_RTOL] + [MAX_GAP_OVER_ROUNDING * v
+                                        for v in own.values()])
+        rows[name] = dict(
+            chunk_len=J, chunk_updates=n_train // TRAIN_BATCH * (K_ITERS // J),
+            train_s=train_s, epoch_train_s=hist["train_time"],
+            val_s=hist["val_time"], train_loss=hist["train_loss"],
+            train_peak_gb=train_peak / 1e9, run_test_s=test_s,
+            run_test_total_s=rep.total_time,
+            parallel_s_per_instance=rep.parallel_time,
+            last_row=rep.row(K_ITERS - 1), k6_gap=gaps,
+            k6_gap_permuted=own, k6_limit=limit)
+        for fault in GHOST_FAULTS:
+            if fault.startswith(name + " "):
+                faults[fault] = dict(limit=limit, gap=ghost_k6(
+                    name, p0, data, faulty=fault))
+        del res, rep
+    row = dict(
+        config=(f"QP {N_VAR}/{N_INEQ}/{N_EQ}, h={HIDDEN}, float32 (plain "
+                f"cells, float32 matvecs), K = outer_T = {K_ITERS}, train "
+                f"B={TRAIN_BATCH}, lr 5e-5, 1 epoch, run_test B="
+                f"{GHOST_TEST_B}; cuts: {GHOST_DATA} generated instances "
+                f"(seed 43), untrained weights, multi_layer_lstm at J="
+                f"{GHOST_J['multi_layer_lstm']}"),
+        generate_s=gen_s, cells=rows, controls=faults,
+        tol=(f"every loss and trace finite; the card's float32 K={K_CHECK} "
+             f"rollout against its float64 one, each state field's gap "
+             f"over max(1, max|f64|) to the larger of {GHOST_F32_RTOL:g} and "
+             f"{MAX_GAP_OVER_ROUNDING:g}x the float32 rollout's own gap "
+             f"with permuted hidden units; each control past its cell's "
+             f"limit"))
+    say("s ghost cells", **row)
+    for name, r in rows.items():
+        worst = max(r["k6_gap"].values())
+        if not worst <= r["k6_limit"]:
+            raise PhaseError(f"s {name}: float32 vs float64 K={K_CHECK} gap "
+                             f"{worst:.3e} exceeds {r['k6_limit']:.3e}: "
+                             f"{r['k6_gap']}")
+    for fault, f in faults.items():
+        if not max(f["gap"].values()) > f["limit"]:
+            raise PhaseError(f"s control '{fault}' passes the gate: {f}")
+    if set(faults) != set(GHOST_FAULTS):
+        raise PhaseError(f"s: controls run {sorted(faults)}")
+    report["ghost"] = row
+    shutil.rmtree(GHOST_DIR, ignore_errors=True)
+
+
+# (t): the theory traces of the canonical profile on (r)'s dataset.  The
+# smallest eigenvalue of A0ᵀA0 (m = n = 1000, Gaussian rows) sits near the
+# float32 rounding of the product: held to float64 numpy in absolute terms,
+# EIG_ATOL of the largest eigenvalue (a backward-stable float32 solver on the
+# float32 product lands within a few float32 ulps of λmax); the relative gap
+# and cond(A0ᵀA0) are reported.
+EIG_ATOL = 1e-5
+THEORY_EXPORT = "theory.mat"
+
+
+def phase_theory(ctx, report):
+    """(t): ``cli.test --theory --export`` on (r)'s step checkpoint at the
+    canonical bf16 profile (use_pallas, bf16 gates and matvecs, K=100):
+    the traces' shapes, t=0 NaN and finiteness, the cell kernel's launches;
+    then the theory rollout's iterates against the evaluation rollout's
+    (bitwise) on the first test batch, and sigma_Q_max / sigma_AA_min of
+    each batch's instance 0 against float64 numpy.  Returns the launches of
+    the CLI run."""
+    import numpy as np
+    import scipy.io
+    import torch
+    from functools import partial
+    from iadmm_tpu_torch.cli import test as cli_test
+    from iadmm_tpu_torch.evaluation import theory
+    from iadmm_tpu_torch.problems.io import split_ids, to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers import rollouts
+    from iadmm_tpu_torch.solvers.step import make_lstm_step
+    from iadmm_tpu_torch.train import checkpoint as ckpt
+    from iadmm_tpu_torch.types import init_state
+    cfg, ds = ctx["cfg"], ctx["ds"]
+    out = os.path.join(CANON_DIR, THEORY_EXPORT)
+    zero_counts()   # the theory run's path, counted from 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = run_cli(cli_test, ctx["common"] + [
+        "--save_dir", ctx["save_dir"], "--load_path", ctx["load"],
+        "--theory", "--export", out], "theory_test.txt")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = launch_counts()
+    _, _, test_ids = split_ids(cfg.data_size, cfg.val_frac, cfg.test_frac,
+                               cfg.seed)
+    bs = cfg.test_batch_size
+    nb = max(len(test_ids) // bs, 1)
+    test_ids = test_ids[:nb * bs]
+    T = cfg.test_outer_T
+    # the warm-up batch's rollout, then each batch's evaluation and theory
+    # rollouts, all through the cell kernel
+    if launches["cell"] != T * (1 + 2 * nb):
+        raise PhaseError(f"t: the cell kernel launched {launches['cell']} "
+                         f"steps, expected {T} x (1 + 2 x {nb})")
+    mat = scipy.io.loadmat(out)
+    shapes = {k: list(mat[k].shape) for k in theory.COND_KEYS}
+    for k in theory.COND_KEYS:
+        v = mat[k]
+        want = ((T, len(test_ids)) if k in theory.PER_INSTANCE_KEYS
+                else (1, T))
+        if v.shape != want:
+            raise PhaseError(f"t: {k} exported as {v.shape}, not {want}")
+        v = v if k in theory.PER_INSTANCE_KEYS else v.T
+        if not np.isnan(v[0]).all() or not np.isfinite(v[1:]).all():
+            raise PhaseError(f"t: {k} is not NaN at t=0 and finite after")
+
+    # the theory rollout's iterates against the evaluation rollout's
+    params = {k: torch.as_tensor(np.asarray(v), device=DEV)
+              for k, v in ckpt.load_checkpoint(ctx["load"])["params"].items()}
+    step = make_lstm_step(use_pallas=True, gate_dtype="bfloat16",
+                          matvec_mode="bf16")
+    scale = partial(scale_batch, iters=cfg.scaling_ites)
+
+    def recording(states):
+        def rec(*a):
+            states.append(step(*a))
+            return states[-1]
+        return rec
+
+    data = to_qp_batch(ds, test_ids[:bs], device=DEV)
+    scaled, sc = scale(data)
+    ev, th = [], []
+    with torch.no_grad():
+        st0 = init_state(data.batch, data.num_var, data.num_constr,
+                         cfg.hidden_dim, device=DEV)
+        rollouts.eval_rollout(recording(ev), params, st0, scaled, data, sc,
+                              cfg.sigma, T)
+        theory.theory_rollout(recording(th), params, st0, scaled, data, sc,
+                              cfg.sigma, T)
+    unequal = [(t, f) for t, (a, b) in enumerate(zip(ev, th))
+               for f in ("x", "y", "z", "xv", "H", "C")
+               if not torch.equal(getattr(a, f), getattr(b, f))]
+    if len(ev) != T or len(th) != T or unequal:
+        raise PhaseError(f"t: theory iterates differ from the evaluation's "
+                         f"at (step, field) {unequal[:5]}")
+    del ev, th
+
+    # the eigenvalues against float64 numpy, and the conditioning
+    eigs = []
+    for bi in range(nb):
+        d = to_qp_batch(ds, test_ids[bi * bs:(bi + 1) * bs], device=DEV)
+        q32, aa32 = (float(v) for v in theory.extreme_eigs(d))
+        Q0 = d.Q[0].double().cpu().numpy()
+        A0 = d.A0[0].double().cpu().numpy()
+        ev_q = np.linalg.eigvalsh(Q0)
+        ev_aa = np.linalg.eigvalsh(A0.T @ A0)
+        eigs.append(dict(
+            sigma_Q_max=q32, sigma_Q_max_f64=float(ev_q[-1]),
+            sigma_AA_min=aa32, sigma_AA_min_f64=float(ev_aa[0]),
+            sigma_AA_max_f64=float(ev_aa[-1]),
+            cond_AA=float(ev_aa[-1] / ev_aa[0]),
+            aa_min_abs_gap_of_max=abs(aa32 - ev_aa[0]) / ev_aa[-1],
+            aa_min_rel_gap=abs(aa32 - ev_aa[0]) / abs(ev_aa[0]),
+            q_max_rel_gap=abs(q32 - ev_q[-1]) / abs(ev_q[-1])))
+    row = dict(
+        config=("scripts/run_workload.py 'QP' at its bf16 profile "
+                f"(use_pallas, bf16 gates and matvecs), K={T}, on (r)'s "
+                f"dataset and step checkpoint; {len(test_ids)} test "
+                f"instances in {nb} batch(es)"),
+        cli_s=cli_s, launches={k: v for k, v in launches.items() if v},
+        export_shapes=shapes, iterates_bitwise=True, eigenvalues=eigs,
+        timing_line=next((ln.strip() for ln in text.splitlines()
+                          if "Parallel Time" in ln), None),
+        tol=(f"traces (T, B) / (1, T), NaN at t=0, finite after; the "
+             f"theory rollout's iterates bitwise the evaluation's; "
+             f"sigma_Q_max and sigma_AA_min to {EIG_ATOL:g} x the largest "
+             f"eigenvalue of their float64 matrix"))
+    say("t theory", **row)
+    for e in eigs:
+        if not e["aa_min_abs_gap_of_max"] <= EIG_ATOL:
+            raise PhaseError(f"t: sigma_AA_min {e['sigma_AA_min']:.6e} vs "
+                             f"float64 {e['sigma_AA_min_f64']:.6e} at "
+                             f"cond {e['cond_AA']:.3e}")
+        if not (abs(e["sigma_Q_max"] - e["sigma_Q_max_f64"])
+                <= EIG_ATOL * abs(e["sigma_Q_max_f64"])):
+            raise PhaseError(f"t: sigma_Q_max {e}")
+    report["theory"] = row
+    return launches
+
+
+# (u): the BCOO sparse route at scripts/run_workload.py's Sparse_QP
+BCOO_DIR = os.path.join(ROOT, "results", "chip_smoke_bcoo")
+BCOO_N, BCOO_MI, BCOO_H = 1000, 500, 400
+# 16 generated instances: 4 train (2 chunk updates of B=2), 2 val, 10 test
+BCOO_DATA, BCOO_VAL, BCOO_TEST = 16, 0.125, 0.625
+BCOO_FLAGS = ("--prob_type", "Sparse_QP", "--num_var", str(BCOO_N),
+              "--num_ineq", str(BCOO_MI), "--outer_T", str(K_ITERS),
+              "--truncated_length", str(K_ITERS), "--hidden_dim",
+              str(BCOO_H), "--eq_tol", "0.5", "--sparse", "--num_devices",
+              "1", "--batch_size", str(TRAIN_BATCH), "--test_batch_size",
+              "10", "--test_outer_T", str(K_ITERS), "--matvec_mode", "bf16",
+              "--sigma", str(SIGMA), "--num_epoch", "1", "--data_size",
+              str(BCOO_DATA), "--val_frac", str(BCOO_VAL), "--test_frac",
+              str(BCOO_TEST))
+
+
+def bcoo_matvec_times(ds):
+    """Device ms of each BCOO matvec (Q, A0, A0ᵀ; B=2 and 10) beside the
+    BSR kernel's on the same scaled operands (bf16 and float32 tiles),
+    launches queued behind a sleep (``queued_ms``)."""
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.kernels.sparse import from_dense
+    from iadmm_tpu_torch.problems.io import to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    rows = []
+    for B in (TRAIN_BATCH, 10):
+        scaled, _ = scale_batch(to_qp_batch(ds, np.arange(B), device=DEV))
+        routes = dict(bcoo=from_dense(scaled, fmt="bcoo"),
+                      bsr_bf16=from_dense(scaled, fmt="bsr",
+                                          dtype=torch.bfloat16),
+                      bsr_f32=from_dense(scaled, fmt="bsr"))
+        g = torch.Generator().manual_seed(B)
+        for op, width in (("Qv", BCOO_N), ("Av", BCOO_N), ("ATv", BCOO_MI)):
+            v = torch.randn((B, width), generator=g).to(DEV)
+            row = dict(B=B, op=op, nse=dict(Q=routes["bcoo"].Q.nse,
+                                            A0=routes["bcoo"].A0.nse))
+            for name, sp in routes.items():
+                fn = getattr(sp, op)
+                row[f"{name}_ms"] = queued_ms(lambda: fn(v), reps=20,
+                                              sleep_ms=100.0)
+            ref = getattr(routes["bsr_f32"], op)(v)
+            row["bcoo_vs_bsr_f32_max_rel"] = float(
+                (getattr(routes["bcoo"], op)(v) - ref).abs().max()
+                / ref.abs().max())
+            rows.append(row)
+    return rows
+
+
+def phase_bcoo(report):
+    """(u): Sparse_QP (n=1000, 500 box rows, h=400, K=100, bf16 matvecs) on
+    the BCOO route through the CLIs: ``cli.train`` (one epoch, twice) and
+    ``cli.test`` (twice), each pair bitwise equal, no kernel launched; the
+    BCOO traces against ``run_test`` on the BSR route with float32 tiles
+    (the same values, sums in another order) and with bf16 tiles; the
+    BCOO matvec times beside the BSR kernel's; the device's busy share of a
+    chunk update and of a test rollout."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from functools import partial
+    from iadmm_tpu_torch.cli import config_parser, parse_config, \
+        test as cli_test, train as cli_train
+    from iadmm_tpu_torch.evaluation.driver import run_test
+    from iadmm_tpu_torch.kernels.sparse import eval_rollout_sparse, \
+        from_dense, make_sparse_chunk_loss
+    from iadmm_tpu_torch.problems import generate
+    from iadmm_tpu_torch.problems.io import dataset_path, load_dataset, \
+        save_npz, split_ids, to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.train import checkpoint as ckpt
+    from iadmm_tpu_torch.train.harness import make_optimizer, \
+        make_train_chunk
+    from iadmm_tpu_torch.train.preload import preload_sparse_cache
+    from iadmm_tpu_torch.types import init_state
+    from iadmm_tpu_torch.utils.logging import RunLog
+    shutil.rmtree(BCOO_DIR, ignore_errors=True)
+    root = os.path.join(BCOO_DIR, "data")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ds = generate("Sparse_QP", num_var=BCOO_N, num_ineq=BCOO_MI,
+                  data_size=BCOO_DATA, seed=47)
+    save_npz(ds, dataset_path(root, "Sparse_QP", BCOO_N, BCOO_MI))
+    gen_s = time.perf_counter() - t0
+    common = list(BCOO_FLAGS) + ["--data_root", root]
+    cfg = parse_config(config_parser("").parse_args(common))
+
+    zero_counts()   # the BCOO route's path, counted from 0
+    runs = []
+    for i in range(2):
+        d = os.path.join(BCOO_DIR, f"run{i}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = run_cli(cli_train, common + ["--save_dir", d],
+                       f"bcoo_train_{i}.txt")
+        torch.cuda.synchronize()
+        train_cli_s = time.perf_counter() - t0
+        path = ckpt.checkpoint_path(d, cfg.model_name, cfg.run_name())
+        load = path if os.path.exists(path) else ckpt.latest_path(path)
+        export = os.path.join(BCOO_DIR, f"traces{i}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test_text = run_cli(cli_test, common + [
+            "--save_dir", d, "--load_path", load, "--export", export],
+            f"bcoo_test_{i}.txt")
+        torch.cuda.synchronize()
+        test_cli_s = time.perf_counter() - t0
+        log = RunLog(os.path.join(d, cfg.model_name,
+                                  cfg.run_name() + ".log.jsonl")).read()
+        epoch = next(r for r in log if r["kind"] == "epoch")
+        runs.append(dict(
+            train_cli_s=train_cli_s, test_cli_s=test_cli_s,
+            epoch_train_s=epoch["train_time"], val_s=epoch["val_time"],
+            train_loss=epoch["train_loss"], load=load,
+            params=ckpt.load_checkpoint(load)["params"],
+            traces=dict(np.load(export)),
+            cache_line=next((ln.strip() for ln in text.splitlines()
+                             if ln.startswith("sparse train cache")), None),
+            timing_line=next((ln.strip() for ln in test_text.splitlines()
+                              if "Parallel Time" in ln), None)))
+    launches = launch_counts()
+    if any(launches.values()):
+        raise PhaseError(f"u: the BCOO route launched kernels {launches}")
+    if not runs[0]["cache_line"] or "(bcoo" not in runs[0]["cache_line"]:
+        raise PhaseError(f"u: no BCOO train cache: {runs[0]['cache_line']}")
+    a, b = runs
+    bitwise = dict(
+        train_loss=a["train_loss"] == b["train_loss"],
+        params=all(np.array_equal(a["params"][k], b["params"][k])
+                   for k in a["params"]),
+        traces=all(np.array_equal(a["traces"][k], b["traces"][k])
+                   for k in a["traces"] if k not in ("time", "total_time")))
+    if not all(np.isfinite(v).all() for k, v in a["traces"].items()):
+        raise PhaseError("u: non-finite BCOO trace")
+
+    # the BSR route on the same checkpoint, and the BCOO route with its
+    # hidden units permuted (its own rounding over K=100)
+    ds = load_dataset(root, "Sparse_QP", BCOO_N, BCOO_MI, 0, 0, BCOO_DATA)
+    params = a["params"]
+    bcoo_rep = run_test(cfg, ds, params, verbose=False, device=DEV)
+    reps = {
+        "bsr_f32": run_test(dataclasses.replace(cfg, sparse_format="bsr",
+                                                matvec_mode="highest"),
+                            ds, params, verbose=False, device=DEV),
+        "bsr_bf16": run_test(dataclasses.replace(cfg, sparse_format="bsr"),
+                             ds, params, verbose=False, device=DEV)}
+    perm = torch.randperm(BCOO_H, generator=torch.Generator().manual_seed(3))
+    pp = permute_hidden({k: torch.as_tensor(v) for k, v in params.items()},
+                        perm)
+    reps["bcoo_perm"] = run_test(cfg, ds, {k: v.numpy()
+                                           for k, v in pp.items()},
+                                 verbose=False, device=DEV)
+    if not np.array_equal(bcoo_rep.x_final, a["traces"]["x"]):
+        raise PhaseError("u: run_test differs from the CLI's export")
+    keys4 = ("obj", "primal_res", "dual_res", "ls_res")
+    keys3 = keys4[:3]
+    gaps = dict(
+        bsr_f32_first6=trace_gap(bcoo_rep, reps["bsr_f32"], keys4, K_CHECK),
+        bsr_f32_K100=trace_gap(bcoo_rep, reps["bsr_f32"], keys3),
+        own_perm_K100=trace_gap(reps["bcoo_perm"], bcoo_rep, keys3),
+        bsr_bf16_first6=trace_gap(bcoo_rep, reps["bsr_bf16"], keys4,
+                                  K_CHECK),
+        bsr_bf16_K100=trace_gap(bcoo_rep, reps["bsr_bf16"], keys3))
+
+    # times: the matvecs alone, and the busy share of a chunk update and of
+    # a test batch's rollout
+    mv = bcoo_matvec_times(ds)
+    train_ids, _, test_ids = split_ids(cfg.data_size, cfg.val_frac,
+                                       cfg.test_frac, cfg.seed)
+    scale = partial(scale_batch, iters=cfg.scaling_ites)
+    (data, _), = preload_sparse_cache(ds, train_ids[:TRAIN_BATCH], 1,
+                                      TRAIN_BATCH, cfg, scale, device=DEV)
+    p = {k: torch.as_tensor(v, device=DEV).requires_grad_(True)
+         for k, v in params.items()}
+    body = make_train_chunk(
+        None, make_optimizer(p, cfg.lr), cfg.outer_T, K_ITERS, cfg.sigma,
+        loss_fn=make_sparse_chunk_loss(cfg.sigma, K_ITERS, cfg.outer_T))
+    st = init_state(TRAIN_BATCH, BCOO_N, BCOO_MI, BCOO_H, device=DEV)
+    chunk = busy_share(lambda: body(p, st, data, 0), top=8)
+    orig = to_qp_batch(ds, test_ids[:10], device=DEV)
+    sd, sc = scale(orig)
+    sp = from_dense(sd, fmt="bcoo")
+    pt = {k: torch.as_tensor(v, device=DEV) for k, v in params.items()}
+    st10 = init_state(10, BCOO_N, BCOO_MI, BCOO_H, device=DEV)
+
+    def rollout():
+        with torch.no_grad():
+            eval_rollout_sparse(pt, st10, sp, orig, sc, cfg.sigma, K_ITERS)
+
+    test_roll = busy_share(rollout, top=8)
+    row = dict(
+        config=("scripts/run_workload.py 'Sparse_QP' (n=1000, 500 box rows, "
+                "h=400, K = outer_T = 100, B=2, sparse_format bcoo, single "
+                "device) at matvec_mode bf16, test B=10; cuts: "
+                f"{BCOO_DATA} generated instances (seed 47), val/test "
+                f"fractions {BCOO_VAL}/{BCOO_TEST}, 1 epoch, untrained "
+                "weights"),
+        generate_s=gen_s,
+        runs=[{k: v for k, v in r.items()
+               if k not in ("params", "traces", "load")} for r in runs],
+        bitwise_two_runs=bitwise, launches=launches,
+        run_test_s={"bcoo": bcoo_rep.total_time,
+                    **{k: r.total_time for k, r in reps.items()}},
+        gaps=gaps, matvec_ms=mv,
+        chunk_update=chunk, test_rollout_B10=test_roll,
+        tol=(f"two CLI runs bitwise equal (loss, params, traces); BCOO vs "
+             f"BSR with float32 tiles: every trace to {ROUTE_RTOL_6} of "
+             f"max|ref| over the first {K_CHECK} steps, obj/primal/dual "
+             f"over K={K_ITERS} within {MAX_GAP_OVER_ROUNDING:g}x the BCOO "
+             f"route's own gap under a hidden-unit permutation (at least "
+             f"{ROUTE_FLOOR_K:.3e}); BSR with bf16 tiles (the data rounded "
+             f"to bf16, the BCOO values float32 as in the JAX package): "
+             f"primal, dual and ls_res to {PROFILE_RTOL_6} over the first "
+             f"{K_CHECK} steps, reported"))
+    say("u bcoo", **row)
+    if not all(bitwise.values()):
+        raise PhaseError(f"u: two BCOO runs differ: {bitwise}")
+    for k in keys4:
+        if not gaps["bsr_f32_first6"][k] <= ROUTE_RTOL_6:
+            raise PhaseError(f"u: {k} BCOO vs BSR float32 "
+                             f"{gaps['bsr_f32_first6'][k]:.3e} in "
+                             f"{K_CHECK} steps")
+    for k in keys4[1:]:
+        if not gaps["bsr_bf16_first6"][k] <= PROFILE_RTOL_6:
+            raise PhaseError(f"u: {k} BCOO vs BSR bf16 "
+                             f"{gaps['bsr_bf16_first6'][k]:.3e}")
+    for k in keys3:
+        if not gaps["bsr_f32_K100"][k] <= max(
+                MAX_GAP_OVER_ROUNDING * gaps["own_perm_K100"][k],
+                ROUTE_FLOOR_K):
+            raise PhaseError(f"u: {k} BCOO vs BSR float32 over K={K_ITERS}: "
+                             f"{gaps['bsr_f32_K100'][k]:.3e} against the "
+                             f"own gap {gaps['own_perm_K100'][k]:.3e}")
+    report["bcoo"] = row
+    shutil.rmtree(BCOO_DIR, ignore_errors=True)
     return launches
 
 
@@ -3566,10 +4143,22 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
 
     # The canonical QP workload through the CLIs, its data layer included
-    r = phase_canonical(report)                                      # (r)
+    r, canon = phase_canonical(report)                               # (r)
     cell_all += r["cell"]
     say("canonical workload path launches",
         **{k: v for k, v in r.items() if v})
+
+    # The single-device routes of the last module slice: the ghost cells,
+    # the theory traces on (r)'s run, the BCOO sparse route
+    phase_ghost(report)                                              # (s)
+    t = phase_theory(canon, report)                                  # (t)
+    cell_all += t["cell"]
+    say("theory path launches", **{k: v for k, v in t.items() if v})
+    shutil.rmtree(CANON_DIR, ignore_errors=True)
+    del canon
+    torch.cuda.empty_cache()
+    u = phase_bcoo(report)                                           # (u)
+    say("bcoo path launches", **u)
 
     def entry(name, src, replaces, key, launches):
         r = report[key]

@@ -55,6 +55,12 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
     'cg' (matrix-free Jacobi CG in plain PyTorch, :mod:`solvers.cg`);
     'auto' resolves to 'fused' for CUDA data and 'lu' for CPU data.  On
     CPU data the fused solvers run their plain twins.
+
+    ``model_name`` selects the step of ``rollout_impl='step'``.  The fused
+    rollout runs the LSTM algorithm whatever ``model_name`` says, as the
+    JAX package's does: ``indirect_lstm`` parameters run there as an LSTM,
+    and a parameter dict without the LSTM's keys and shapes raises
+    ValueError.
     """
     if stage2_impl not in _STAGE2_IMPLS:
         raise ValueError(f"unknown stage2_impl {stage2_impl!r}")

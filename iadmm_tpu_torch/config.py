@@ -4,9 +4,10 @@ Counterpart of ``iadmm_tpu/config.py``: the same fields, defaults, YAML
 schema and ``run_name()``, so the same ``configs/*.yaml`` drive both
 packages.  Unknown keys raise.
 
-The port accepts every key of the JAX package.  Some select routes it has
-not ported; :meth:`ExperimentConfig.check_ported` raises
-``NotImplementedError`` for a value that needs one (see ROADMAP.md).
+The port accepts every key of the JAX package and runs every
+single-device route; :meth:`ExperimentConfig.check_ported` raises
+``NotImplementedError`` for ``num_devices``/``model_devices > 1``, the
+mesh routes it has not ported (see ROADMAP.md).
 ``preload`` and ``preload_dtype`` keep the train split on the device as
 the JAX package does (``train/harness.py``); ``epoch_scan`` chooses how
 the JAX package dispatches an epoch over that stack, and the port
@@ -121,11 +122,6 @@ class ExperimentConfig:
         if self.num_devices > 1 or self.model_devices > 1:
             unported.append("num_devices/model_devices > 1 (data and "
                             "tensor parallelism)")
-        if self.sparse and self.sparse_format != "bsr":
-            unported.append(f"sparse=True with sparse_format="
-                            f"{self.sparse_format!r} (the BCOO route)")
-        if self.theory:
-            unported.append("theory=True (the theory-condition traces)")
         if self.preload_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown preload_dtype {self.preload_dtype!r}")
         if self.train_backend not in ("step", "fused"):

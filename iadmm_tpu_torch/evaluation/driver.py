@@ -11,22 +11,27 @@ Counterpart of ``TestReport``, ``run_test`` and ``export_traces`` in
     summed over the batches, over the test size.  Each timed region ends
     in ``torch.cuda.synchronize()`` on the card; the first batch runs once
     untimed first (warm-up: kernel builds and library initialisation);
-  * the dense route runs the step of ``make_lstm_step`` (the cell kernel
-    with ``use_pallas``); ``sparse=True, sparse_format='bsr'`` runs the
-    tile-sparse route (:mod:`iadmm_tpu_torch.kernels.sparse`), whose tiling
-    happens on the host outside the timed region;
+  * the dense route runs the step of ``cfg.model_name`` (for ``'lstm'``,
+    the step of ``make_lstm_step``: the cell kernel with ``use_pallas``);
+    ``sparse=True`` runs the sparse route
+    (:mod:`iadmm_tpu_torch.kernels.sparse`, BSR tiles or BCOO entries by
+    ``sparse_format``), whose conversion happens outside the timed region;
+  * ``cfg.theory`` adds the theory-condition traces
+    (:mod:`iadmm_tpu_torch.evaluation.theory`), untimed, on the dense
+    route: a second rollout of the same step per batch;
   * ``export_traces`` writes the JAX package's keys, ``.mat`` (scipy) or
     ``.npz``;
   * ``run_osqp_baseline`` solves the test split with the QP oracle on the
     host (the classical-solver baseline).
 
-Not ported: the theory traces and the multi-device mesh (see ROADMAP.md).
+Not ported: the multi-device mesh (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from functools import partial
 from typing import Dict, List, Optional
 
@@ -42,6 +47,7 @@ from ..solvers import rollouts as R
 from ..solvers.step import (_schedules, check_schedule_len, get_cell,
                             make_lstm_step, rho_vector)
 from ..types import init_state
+from . import theory as theory_mod
 
 
 def _sync(device) -> None:
@@ -152,6 +158,12 @@ def run_test(cfg: ExperimentConfig, ds: RawDataset, params,
                 dtype=sparse_mod.tile_dtype(cfg.matvec_mode))
         return data_scaled, sc
 
+    def theory_batch(data_scaled, data_orig, scaling):
+        st = init_state(data_orig.batch, data_orig.num_var,
+                        data_orig.num_constr, cfg.hidden_dim, device=device)
+        return theory_mod.theory_rollout(step_fn, params, st, data_scaled,
+                                         data_orig, scaling, sigma, T)
+
     def stage2_batch(st, data_orig, scaling):
         # Stage II runs in the original space with the last learned rho
         # (or a fixed stage2_rho > 0).
@@ -182,6 +194,7 @@ def run_test(cfg: ExperimentConfig, ds: RawDataset, params,
 
     traces: List[Dict] = []
     s2_traces: List[Dict] = []
+    theory_traces: List[Dict] = []
     xs: List[np.ndarray] = []
     total_time = 0.0
     s2_time = 0.0
@@ -204,6 +217,10 @@ def run_test(cfg: ExperimentConfig, ds: RawDataset, params,
             print(f"run_test: batch {bi + 1}/{n_batches} "
                   f"({total_time:.2f}s cumulative)", flush=True)
         traces.append(_trace_to_numpy(trace))
+        if cfg.theory and not cfg.sparse:
+            # diagnostics, untimed
+            th = theory_batch(data_scaled, data_orig, sc)
+            theory_traces.append({k: v.cpu().numpy() for k, v in th.items()})
         if cfg.feas_rest:
             # Stage II is inside the timed region: its wall-clock counts
             # toward total_time and is reported on its own as well.
@@ -238,10 +255,22 @@ def run_test(cfg: ExperimentConfig, ds: RawDataset, params,
                             total_time=s2_time,
                             parallel_time=s2_time / len(test_ids),
                             test_size=len(test_ids), x_final=x_fin)
+    theory = None
+    if theory_traces:
+        # per-instance keys concatenate over the batches, (T, test size);
+        # the rest average over them (t=0 is NaN in every batch)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            theory = {k: (np.concatenate([t[k] for t in theory_traces],
+                                         axis=1)
+                          if k in theory_mod.PER_INSTANCE_KEYS else
+                          np.nanmean(np.stack([t[k] for t in theory_traces]),
+                                     axis=0))
+                      for k in theory_traces[0]}
     report = TestReport(**avg(traces), stage2=stage2, total_time=total_time,
                         parallel_time=total_time / len(test_ids),
                         test_size=len(test_ids), x_final=x_fin,
-                        oracle_gap=oracle_gap)
+                        oracle_gap=oracle_gap, theory=theory)
     if verbose:
         print(report.table(every=max(T // 20, 1)))
         if oracle_gap is not None:
@@ -278,8 +307,11 @@ def _oracle_gap(ds: RawDataset, idx: np.ndarray, x_fin: np.ndarray) -> Dict:
 
 
 def export_traces(report: TestReport, path: str) -> None:
-    """Save the full traces: ``.mat`` (scipy, the JAX package's keys, the
-    theory-condition arrays empty), anything else as ``.npz``."""
+    """Save the full traces: ``.mat`` (scipy, the JAX package's keys) or
+    anything else as ``.npz``.  The ``.mat`` file holds the
+    theory-condition traces: the per-instance keys ``(T, test size)``, the
+    rest as ``(1, T)`` rows, and every key of the schema the run did not
+    produce as an empty ``(1, 0)`` array."""
     flat = dict(time=report.parallel_time, total_time=report.total_time,
                 x=report.x_final, objs=report.obj, ls_res=report.ls_res,
                 primal_res=report.primal_res, dual_res=report.dual_res)
@@ -290,6 +322,10 @@ def export_traces(report: TestReport, path: str) -> None:
             flat[f"stage2_{k}"] = getattr(report.stage2, k)
     if path.endswith(".mat"):
         import scipy.io
+        for k, v in (report.theory or {}).items():
+            v = np.asarray(v)
+            flat[k] = (v if k in theory_mod.PER_INSTANCE_KEYS
+                       else v.reshape(1, -1))
         for base in ("x_cond_1", "x_cond_2", "z_cond_1", "z_cond_2",
                      "alpha_cond"):
             for side in ("left", "right"):

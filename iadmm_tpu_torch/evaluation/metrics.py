@@ -1,8 +1,9 @@
 """Residuals and objective.
 
-Counterpart of ``obj_fn``, ``primal_dual_residual``, ``primal_dual_loss``,
-the distance functions and ``violation_stats`` in
-``iadmm_tpu/evaluation/metrics.py``.  ``aug_lagr`` is not ported yet.
+Counterpart of ``iadmm_tpu/evaluation/metrics.py``: ``obj_fn``,
+``primal_dual_residual``, ``primal_dual_loss``, the distance functions,
+``violation_stats`` and ``aug_lagr`` (the reference's augmented
+Lagrangian with its Q·p typo fixed to Q·x, as the JAX package fixes it).
 """
 
 from __future__ import annotations
@@ -71,3 +72,11 @@ def violation_stats(x, data: QPBatch, mode: Optional[str] = None):
         out[f"{name}_max"] = d.max(dim=-1).values.mean()
         out[f"{name}_mean"] = d.mean()
     return out
+
+
+def aug_lagr(x, z, y, Q, p, A0, rho_vec) -> torch.Tensor:
+    """Augmented Lagrangian per instance:
+    0.5 xᵀQx + pᵀx + yᵀ(A0x − z) + 0.5 (A0x − z)ᵀdiag(ρ)(A0x − z)."""
+    fx = 0.5 * (x * bmv(Q, x)).sum(-1) + (p * x).sum(-1)
+    res = bmv(A0, x) - z
+    return fx + (y * res).sum(-1) + 0.5 * (res * (rho_vec * res)).sum(-1)

@@ -149,13 +149,20 @@ def fused_rollout(params: Dict, data: QPBatch, *, hidden: int, K: int,
     """Run K learned iterations from a zero state; returns (x, y, z).
 
     On CUDA data this launches the kernels of ``csrc/rollout.cu`` once per
-    iteration; on CPU data it runs :func:`rollout_plain`."""
+    iteration; on CPU data it runs :func:`rollout_plain`.  Both run the
+    LSTM cell with learned schedules: ``params`` must hold the LSTM's keys
+    and shapes (ValueError otherwise), whichever cell they came from."""
+    missing = [k for k in CELL_KEYS + ("rho", "alpha") if k not in params]
+    if missing:
+        raise ValueError(f"the fused rollout runs the LSTM cell with learned "
+                         f"schedules; params lack {missing}")
     for k in ("rho", "alpha"):
         if len(params[k]) < K:
             raise ValueError(f"params[{k!r}] has {len(params[k])} entries, "
                              f"the rollout needs {K}")
     if data.p.is_cuda:
         return _rollout_cuda(params, data, hidden, K, sigma)
+    check_cell_weights(*(params[k] for k in CELL_KEYS), hidden)
     return rollout_plain(params, data, hidden=hidden, K=K, sigma=sigma)
 
 

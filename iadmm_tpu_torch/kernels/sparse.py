@@ -1,14 +1,18 @@
-"""Tile-sparse (BSR) problem data through the learned solver.
+"""Sparse problem data through the learned solver: BCOO and BSR.
 
-Counterpart of the BSR half of ``iadmm_tpu/kernels/sparse.py``.  A
-:class:`BSRQPBatch` holds Q, A0 and A0ᵀ as :class:`BSRMatrix` operands and
-exposes the three solver matvecs ``Qv``/``Av``/``ATv``, each a
-differentiable BSR matvec (:func:`bsr_matvec_ad`, the CUDA kernel on the
-card).  The step, loss, metric and evaluation functions below take any
-batch with that protocol.  The learned cell is the plain
-:func:`cells.lstm_apply` with float32 gates, as in the JAX package.
+Counterpart of ``iadmm_tpu/kernels/sparse.py``.  Two batch layouts expose
+the three solver matvecs ``Qv``/``Av``/``ATv``, and the step, loss, metric
+and evaluation functions below take either:
 
-The BCOO format is not ported (``fmt='bcoo'`` raises; see ROADMAP.md).
+  * :class:`SparseQPBatch` (``sparse_format='bcoo'``, the default): Q and A0
+    as :class:`~iadmm_tpu_torch.kernels.bcoo.BCOOMatrix` batches with the
+    JAX package's nse, each matvec a gather-based sum per row or column,
+    differentiable with the JAX package's VJP;
+  * :class:`BSRQPBatch` (``'bsr'``): Q, A0 and A0ᵀ as :class:`BSRMatrix`
+    tiles, each matvec the BSR kernel on the card (:func:`bsr_matvec_ad`).
+
+The learned cell is the plain :func:`cells.lstm_apply` with float32 gates,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,8 +27,38 @@ from ..solvers import cells
 from ..solvers.rollouts import ls_norm, metrics_row, stack_traces
 from ..solvers.step import _schedules, admm_update
 from ..types import IterState, QPBatch
+from .bcoo import BCOOMatrix, bcoo_from_dense, bcoo_matvec, bcoo_matvec_t
 from .sparse_matvec import BSRMatrix, bsr_from_dense, bsr_matvec_ad, \
     bsr_pair_from_dense
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseQPBatch:
+    """QP batch with BCOO Q and A0 (one padded nse per operand)."""
+
+    Q: BCOOMatrix     # (B, n, n)
+    p: torch.Tensor   # (B, n)
+    A0: BCOOMatrix    # (B, m, n)
+    zl: torch.Tensor
+    zu: torch.Tensor
+    eq_mask: torch.Tensor
+
+    @property
+    def num_var(self) -> int:
+        return self.Q.shape[-1]
+
+    @property
+    def num_constr(self) -> int:
+        return self.A0.shape[0]
+
+    def Qv(self, v: torch.Tensor) -> torch.Tensor:
+        return bcoo_matvec(self.Q, v)
+
+    def Av(self, v: torch.Tensor) -> torch.Tensor:
+        return bcoo_matvec(self.A0, v)
+
+    def ATv(self, v: torch.Tensor) -> torch.Tensor:
+        return bcoo_matvec_t(self.A0, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,16 +99,22 @@ def tile_dtype(matvec_mode: str) -> torch.dtype:
     return torch.bfloat16 if matvec_mode == "bf16" else torch.float32
 
 
-def from_dense(data: QPBatch, fmt: str, tile=(8, 128),
-               dtype=torch.float32) -> BSRQPBatch:
-    """Convert a dense QPBatch to the tile-sparse layout (``fmt='bsr'``):
-    Q, A0 and A0ᵀ are tiled on the host with ``tile`` tiles stored as
+def from_dense(data: QPBatch, fmt: str = "bcoo", tile=(8, 128),
+               dtype=torch.float32, nse_pad: int = 1024, min_nse=(0, 0)):
+    """Convert a dense QPBatch to a sparse layout on its device.
+
+    ``fmt='bcoo'``: :class:`SparseQPBatch`, each operand's nse the largest
+    nonzero count over the batch rounded up to a multiple of ``nse_pad``,
+    at least ``min_nse`` (Q, A0), at most the dense size.  The values keep
+    the batch's dtype whatever ``dtype`` says, as in the JAX package, whose
+    BCOO branch takes no ``dtype``.  ``fmt='bsr'``: :class:`BSRQPBatch`,
+    Q, A0 and A0ᵀ tiled on the host with ``tile`` tiles stored as
     ``dtype``."""
     if fmt == "bcoo":
-        raise NotImplementedError(
-            "the BCOO sparse format is not ported to PyTorch yet; use "
-            "sparse_format='bsr' (see ROADMAP.md, Queue 1, the BCOO sparse "
-            "route)")
+        return SparseQPBatch(Q=bcoo_from_dense(data.Q, nse_pad, min_nse[0]),
+                             p=data.p,
+                             A0=bcoo_from_dense(data.A0, nse_pad, min_nse[1]),
+                             zl=data.zl, zu=data.zu, eq_mask=data.eq_mask)
     if fmt != "bsr":
         raise ValueError(f"unknown sparse format {fmt!r}")
     dev = data.p.device

@@ -27,12 +27,16 @@ its float32 diagonal when every Hessian is diagonal, the route is not
 into it; ``'never'`` converts and scales each batch when it is used.
 ``epoch_scan=True`` dispatches batch by batch over the stack: the JAX
 package's whole-epoch scan steps the optimizer once a chunk as well, so
-the updates are the same.  ``sparse=True`` with ``sparse_format='bsr'``
-trains over tile-sparse problem data
-(:mod:`iadmm_tpu_torch.kernels.sparse`, the BSR matvec kernel): the train
-split is scaled and tiled once into a device cache, or per batch with
-``preload='never'``; validation stays dense.  Not ported: the TPU-worker
-crash recovery, the BCOO route and the mesh paths (see ROADMAP.md).
+the updates are the same.  ``sparse=True`` trains over sparse problem
+data (:mod:`iadmm_tpu_torch.kernels.sparse`): ``sparse_format='bsr'``
+through the BSR matvec kernel, ``'bcoo'`` (the default) through the
+gather-based BCOO matvecs; the train split is scaled and converted once
+into a device cache, or per batch with ``preload='never'``; validation
+stays dense.  ``model_name`` selects the cell
+(:data:`~iadmm_tpu_torch.solvers.step.CELL_REGISTRY`); the cell kernel and
+the precision profile apply to ``'lstm'`` only, as in the JAX package.
+Not ported: the TPU-worker crash recovery and the mesh paths (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -220,9 +224,13 @@ def train(cfg: ExperimentConfig, ds: RawDataset, verbose: bool = True,
     train_ids, val_ids, _ = split_ids(cfg.data_size, cfg.val_frac,
                                       cfg.test_frac, cfg.seed)
     cell = get_cell(cfg.model_name)
+    # cfg.inner_T reaches only the multi-layer init, which ignores it, as in
+    # the JAX package: the step runs its default inner_T
     params = cell.init(torch.Generator().manual_seed(cfg.seed),
                        cfg.input_dim, cfg.hidden_dim, cfg.outer_T,
-                       device=device)
+                       device=device,
+                       **({"inner_T": cfg.inner_T}
+                          if cfg.model_name == "multi_layer_lstm" else {}))
     for p in params.values():
         p.requires_grad_(True)
     optimizer = make_optimizer(params, cfg.lr, cfg.weight_decay,

@@ -12,12 +12,14 @@ Counterpart of ``iadmm_tpu/train/preload.py``.
   ``solvers.step.bmv`` multiplies elementwise.  The shared leaves of the
   QP_RHS family stay ``(1, 1, ...)`` and are broadcast with ``expand`` when
   a batch is indexed, never materialised.
-* **Sparse tile cache** (:func:`preload_sparse_cache`, its BSR branch):
-  each batch is Ruiz-scaled on the device, fetched and tiled on the host,
-  and only the tiles are kept; then every batch is padded to the
-  family-wide tile count K of each operand (Q, A0, A0ᵀ), so all batches
-  share one shape, and placed on the device.  The BCOO branch is not
-  ported.
+* **Sparse cache** (:func:`preload_sparse_cache`): each batch is
+  Ruiz-scaled on the device and converted, and only the converted arrays
+  are kept; then every batch is padded to one family-wide shape per
+  operand and placed on the device.  BSR: tiled on the host, padded to the
+  largest tile count K of each operand (Q, A0, A0ᵀ).  BCOO: converted on
+  the device, padded to the largest nonzero count over the split of each
+  operand (Q, A0), with no rounding to ``nse_pad``, as the JAX package's
+  cache pads it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from ..config import ExperimentConfig
 from ..kernels import sparse as sparse_mod
+from ..kernels.bcoo import BCOOMatrix, bcoo_entries, bcoo_pad
 from ..kernels.sparse_matvec import bsr_from_host, bsr_pad_k, bsr_tiles_host
 from ..problems.generators import RawDataset
 from ..problems.io import to_qp_batch
@@ -209,12 +212,17 @@ TILE = (8, 128)   # the route's (TM, TN) tiles
 
 
 def sparse_cache_bytes(cache: List) -> int:
-    """Device bytes of a sparse cache (tiles, indices, vectors, costs)."""
+    """Device bytes of a sparse cache (values, indices, the BCOO gather
+    plans, vectors, costs)."""
     total = 0
     for entry, cost in cache:
         leaves = [entry.p, entry.zl, entry.zu, entry.eq_mask]
-        for op in (entry.Q, entry.A0, entry.A0T):
-            leaves += [op.vals, op.cols]
+        if isinstance(entry, sparse_mod.SparseQPBatch):
+            for op in (entry.Q, entry.A0):
+                leaves += [op.data, op.indices, *op.rows, *op.cols]
+        else:
+            for op in (entry.Q, entry.A0, entry.A0T):
+                leaves += [op.vals, op.cols]
         if cost is not None:
             leaves.append(cost)
         total += sum(t.numel() * t.element_size() for t in leaves)
@@ -224,16 +232,18 @@ def sparse_cache_bytes(cache: List) -> int:
 def preload_sparse_cache(ds: RawDataset, ids: np.ndarray, n_batches: int,
                          batch_size: int, cfg: ExperimentConfig,
                          scale: Callable, device="cuda",
-                         verbose: bool = False
-                         ) -> List[Tuple[sparse_mod.BSRQPBatch,
-                                         Optional[torch.Tensor]]]:
-    """``[(BSRQPBatch, Ruiz cost or None)]`` per train batch, on
-    ``device``, tiles stored in bf16 for ``matvec_mode='bf16'`` and in
-    float32 otherwise."""
+                         verbose: bool = False) -> List[Tuple]:
+    """``[(sparse batch, Ruiz cost or None)]`` per train batch, on
+    ``device``: :class:`~sparse_mod.BSRQPBatch` for
+    ``sparse_format='bsr'``, tiles stored in bf16 for
+    ``matvec_mode='bf16'`` and in float32 otherwise;
+    :class:`~sparse_mod.SparseQPBatch` for ``'bcoo'``, values in the scaled
+    batch's dtype (float32)."""
+    if cfg.sparse_format == "bcoo":
+        return _preload_bcoo_cache(ds, ids, n_batches, batch_size, cfg,
+                                   scale, device, verbose)
     if cfg.sparse_format != "bsr":
-        raise NotImplementedError(
-            f"the {cfg.sparse_format!r} sparse cache is not ported to "
-            f"PyTorch yet; see ROADMAP.md (Queue 1, the BCOO sparse route)")
+        raise ValueError(f"unknown sparse format {cfg.sparse_format!r}")
     B = batch_size
     dt = sparse_mod.tile_dtype(cfg.matvec_mode)
 
@@ -275,4 +285,44 @@ def preload_sparse_cache(ds: RawDataset, ids: np.ndarray, n_batches: int,
         print(f"sparse train cache: {n_batches} batches, {gb:.4f} GB on "
               f"{device} (bsr, converted in {time.time() - t0:.1f}s)",
               flush=True)
+    return cache
+
+
+def _preload_bcoo_cache(ds: RawDataset, ids: np.ndarray, n_batches: int,
+                        batch_size: int, cfg: ExperimentConfig,
+                        scale: Callable, device, verbose: bool) -> List[Tuple]:
+    """The BCOO branch of :func:`preload_sparse_cache`."""
+    B = batch_size
+    t0 = time.time()
+    host = []
+    nse = [1, 1]   # Q, A0: the largest nonzero count over the split
+    for bi in range(n_batches):
+        sl = np.asarray(ids[bi * B:(bi + 1) * B])
+        data = to_qp_batch(ds, sl, with_metric_views=False, device=device)
+        cost = None
+        if cfg.scaling:
+            data, sc = scale(data)
+            cost = sc.cost
+        h = dict(p=data.p, zl=data.zl, zu=data.zu, eq_mask=data.eq_mask,
+                 cost=cost)
+        for i, k in enumerate(("Q", "A0")):
+            M = getattr(data, k)
+            count = int((M != 0).sum(dim=(-2, -1)).max())
+            h[k] = (bcoo_entries(M, max(count, 1)), tuple(M.shape[-2:]))
+            nse[i] = max(nse[i], count)
+        host.append(h)
+
+    cache = []
+    for h in host:
+        ops = {k: BCOOMatrix(*bcoo_pad(*h[k][0], nse[i], h[k][1]), h[k][1])
+               for i, k in enumerate(("Q", "A0"))}
+        sp = sparse_mod.SparseQPBatch(p=h["p"], zl=h["zl"], zu=h["zu"],
+                                      eq_mask=h["eq_mask"], **ops)
+        cache.append((sp, h["cost"]))
+
+    if verbose:
+        gb = sparse_cache_bytes(cache) / 1e9
+        print(f"sparse train cache: {n_batches} batches, {gb:.4f} GB on "
+              f"{device} (bcoo, nse {nse[0]}/{nse[1]}, converted in "
+              f"{time.time() - t0:.1f}s)", flush=True)
     return cache

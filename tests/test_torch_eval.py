@@ -132,13 +132,21 @@ def test_run_test_bsr_matches_dense(tmp_path, capsys):
 
 
 def test_run_test_rejects_unported(tmp_path):
+    """Only the mesh routes are left unported; the theory traces and the
+    BCOO route (sparse=True's default format) run."""
     ds = _sparse_ds()
     jp = {k: np.asarray(v) for k, v in _params().items()}
-    for extra in (dict(theory=True), dict(sparse=True)):
+    for extra in (dict(num_devices=2), dict(model_devices=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdriver.run_test(tconfig.ExperimentConfig(**_cfg(tmp_path,
                                                              **extra)),
                              ds, jp, verbose=False, device="cpu")
+    for extra in (dict(theory=True), dict(sparse=True)):
+        rep = tdriver.run_test(tconfig.ExperimentConfig(**_cfg(tmp_path,
+                                                               **extra)),
+                               ds, jp, verbose=False, device="cpu")
+        assert np.isfinite(rep.primal_res).all()
+        assert (rep.theory is not None) == ("theory" in extra)
 
 
 @pytest.mark.parametrize("ext", [".npz", ".mat"])

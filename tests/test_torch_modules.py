@@ -243,8 +243,7 @@ def test_schedule_and_cell_errors(params64):
     with pytest.raises(ValueError, match="test_outer_T"):
         tstep.check_schedule_len(tp, 9)
     tstep.check_schedule_len(tp, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.get_cell("gru")
+    assert tstep.get_cell("gru").step is tstep.gru_step
     with pytest.raises(ValueError, match="unknown solver cell"):
         tstep.get_cell("nope")
     assert tstep.get_cell("LSTM").step is tstep.lstm_step

@@ -261,9 +261,11 @@ def test_sparse_chunk_updates_match_jax_harness():
 
 
 def test_from_dense_bcoo_raises():
+    """The BCOO format is ported (tests/test_torch_bcoo.py holds it); an
+    unknown format still raises."""
     _, _, jscaled, _, _ = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsp.from_dense(to_torch(jscaled), fmt="bcoo")
+    assert isinstance(tsp.from_dense(to_torch(jscaled), fmt="bcoo"),
+                      tsp.SparseQPBatch)
     with pytest.raises(ValueError, match="unknown"):
         tsp.from_dense(to_torch(jscaled), fmt="csr")
 
@@ -302,17 +304,25 @@ def test_sparse_cache_pads_to_one_shape_and_matches_per_batch(tmp_path):
         for op, width in (("Qv", 300), ("Av", 300), ("ATv", 40)):
             v = torch.randn((2, width), generator=g)
             assert torch.equal(getattr(b, op)(v), getattr(ref, op)(v))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpre.preload_sparse_cache(ds, ids, 3, 2,
-                                  dataclasses.replace(cfg,
-                                                      sparse_format="bcoo"),
-                                  tscale, device="cpu")
+    bcoo = tpre.preload_sparse_cache(
+        ds, ids, 3, 2, dataclasses.replace(cfg, sparse_format="bcoo"),
+        tscale, device="cpu")
+    assert len({(b.Q.nse, b.A0.nse) for b, _ in bcoo}) == 1
+    with pytest.raises(ValueError, match="unknown"):
+        tpre.preload_sparse_cache(
+            ds, ids, 3, 2, dataclasses.replace(cfg, sparse_format="csr"),
+            tscale, device="cpu")
 
 
 def test_check_ported_sparse_formats_and_theory():
-    tconfig.ExperimentConfig(sparse=True, sparse_format="bsr").check_ported()
-    for kw in (dict(sparse=True), dict(sparse=True, sparse_format="bcoo"),
-               dict(theory=True)):
+    """Both sparse formats and the theory traces are ported; the mesh
+    routes are not."""
+    for kw in (dict(sparse=True, sparse_format="bsr"), dict(sparse=True),
+               dict(sparse=True, sparse_format="bcoo"), dict(theory=True),
+               dict(model_name="gru", inner_T=7)):
+        tconfig.ExperimentConfig(**kw).check_ported()
+    for kw in (dict(num_devices=2, sparse=True), dict(model_devices=2,
+                                                      theory=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tconfig.ExperimentConfig(**kw).check_ported()
 

@@ -78,9 +78,14 @@ def test_yaml_configs_load_equal(path):
 
 
 def test_unported_config_values_raise():
-    for kw in (dict(num_devices=2), dict(model_devices=2), dict(sparse=True)):
+    for kw in (dict(num_devices=2), dict(model_devices=2),
+               dict(num_devices=2, sparse=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tconfig.ExperimentConfig(**kw).check_ported()
+    # the BCOO route, the theory traces and the ghost cells are ported
+    for kw in (dict(sparse=True), dict(theory=True),
+               dict(model_name="indirect_lstm")):
+        tconfig.ExperimentConfig(**kw).check_ported()
     # dispatch and placement only: accepted
     tconfig.ExperimentConfig(epoch_scan=False, preload="always").check_ported()
     # the bf16 train stack is ported; an unknown storage dtype is an error

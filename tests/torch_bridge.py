@@ -72,10 +72,12 @@ def to_jax(obj, dtype=None):
     return conv(obj)
 
 
-def params_to_torch(jax_params, dtype=torch.float64, device="cpu"):
-    """JAX LSTM parameters as the port's dict, through numpy."""
+def params_to_torch(jax_params, dtype=torch.float64, device="cpu",
+                    model_name="lstm"):
+    """JAX parameters of cell ``model_name`` as the port's dict, through
+    numpy."""
     return params_from_jax({k: np.asarray(v) for k, v in jax_params.items()},
-                           device=device, dtype=dtype)
+                           device=device, dtype=dtype, model_name=model_name)
 
 
 def jax_lstm_params(seed: int, hidden: int, length: int, dtype=jnp.float32):
