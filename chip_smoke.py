@@ -21,7 +21,10 @@ routes (the ghost cells, the theory traces, the BCOO sparse route):
       plain version after K_CHECK=6 steps, and after K=100 to within
       MAX_GAP_OVER_ROUNDING times the gap between the plain version and
       itself with permuted hidden units (its own rounding, amplified by
-      the untrained recurrence); timed at K=100;
+      the untrained recurrence); timed at K=100, with its cell tile and
+      cluster, a call's device µs by part (cell, colpass, finish, update)
+      and busy share, beside K x torch.matmul of H·U in bf16 (the cell's
+      GEMM alone, a yardstick the port never calls);
   (c) the Stage-II 'kkt' kernel against its plain version (B=8, N=20),
       timed beside N x torch.bmm of Ã⁻¹ by b̃;
   (d) serving: ``make_solver`` with the fast profile answers 3 requests of
@@ -185,8 +188,10 @@ to ``results/chip_smoke*/`` and are removed at the end.
 
 Two checkouts can be held bitwise equal (a kernel change that must not
 move a result): the bf16-gate cell at six shapes and the float32-gate
-cell at five (the flagship shape with both state dtypes, ragged ones), a
-J=6 bf16 training forward at B=2, the float32 stream pair and segment
+cell at five (the flagship shape with both state dtypes, ragged ones), the
+serving rollout's (x, y, z) at B=8 (K=6 and K=100) and at B=2 on two
+ragged shapes (S = 1037 with h = 808; h = 212), a J=6 bf16 training
+forward at B=2, the float32 stream pair and segment
 pair (segments of 2) at J=6 with every gradient and start-state
 cotangent, the J=100 forward at B=2 at both profiles, one bf16 segment
 call at B=16, (d)'s first request with its LU and pre-polish references,
@@ -199,12 +204,17 @@ checkout (copy this script into an older checkout first):
     python3 chip_smoke.py --compare a.pt b.pt
 
 and the rows of PERF.md §6 (both profiles, with a chunk update and a
-solve of each, the forward's and each Stage-II solver's device breakdown
-and busy share, 'kkt' also on a row-major operand and 'cg' also with its
+solve of each, the 'fused' solve by stage, the rollout's, the forward's
+and each Stage-II solver's device breakdown and busy share, 'kkt' also on a row-major operand and 'cg' also with its
 CUDA graph captured anew each call) timed on one card, the checkouts in
 turns:
 
     python3 chip_smoke.py --time-rows a.json
+
+and the serving rollout alone (row 2, with a batch shape that changes
+from call to call), the same way:
+
+    python3 chip_smoke.py --time-rollout a.json
 """
 
 from __future__ import annotations
@@ -237,6 +247,12 @@ TRAIN_BATCH, TRAIN_DATA, TRAIN_EPOCHS = 2, 16, 2
 # H and the dU operands)
 RAGGED_S, RAGGED_H = 1037, 808
 RAGGED_TRAIN = ((300, 150, 137, 212), (300, 150, 137, 808))  # n, mi, me, h
+# The rollout's ragged shapes (B=2): S = 1037 with h = 808, and h = 212
+ROLLOUT_RAGGED = ((537, 250, 250, RAGGED_H), (300, 150, 137, 212))
+# The rollout's device time by part: CUDA kernel names holding these
+ROLLOUT_PARTS = (("cell", ("rollout_cell_kernel", "bf16_kernel")),
+                 ("colpass", ("colpass",)), ("finish", ("finish_kernel",)),
+                 ("update", ("update_kernel",)))
 MAX_LEAF_GAP = 2e-2   # per-leaf normalised gradient gap (JAX bf16 test)
 MAX_LEAF_GAP_J100 = 2e-3   # the same, bwd on the same streams at J=100
                            # (<= 3.3e-4 measured on an H100)
@@ -538,6 +554,7 @@ def rel_gap(outs, refs):
 
 def phase_rollout(params, data, report):
     import torch
+    from iadmm_tpu_torch.kernels import _build
     from iadmm_tpu_torch.kernels import rollout_kernel as rk
     from iadmm_tpu_torch.kernels.bounds import bound_ms
     from iadmm_tpu_torch.scaling import scale_batch
@@ -575,6 +592,15 @@ def phase_rollout(params, data, report):
     B, n = data.p.shape
     m = data.num_constr
     S, h, K = n + m, HIDDEN, K_ITERS
+    # where a call's device time goes, and the device's busy share
+    parts = rollout_breakdown(lambda: rk.fused_rollout(
+        params, scaled, hidden=HIDDEN, K=K_ITERS, sigma=SIGMA))
+    # yardstick: K x torch.matmul of H·U in bf16, the cell's GEMM alone
+    Hb = torch.rand((B * S, h), generator=torch.Generator().manual_seed(9))
+    Hb, Ub = Hb.to(DEV, torch.bfloat16), params["U"].to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: [torch.matmul(Hb, Ub) for _ in range(K)],
+                     reps=2)
+    del Hb
     nbytes = (B * (n * n + m * n) * 2 + B * (n + 3 * m) * 4
               + (2 * 4 * h + h * 4 * h + h) * 2 + 4 * h * 4 + 2 * K * 4
               + B * (n + 2 * m) * 4)
@@ -591,8 +617,20 @@ def phase_rollout(params, data, report):
                rel_gap_at_K100=gap_k,
                plain_vs_permuted_plain_rel_gap_at_K100=plain_gap_k,
                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-               launches=K, library_ms=None,
-               instance_iters_per_s=B * K / (k_ms / 1e3))
+               launches=K, library_ms=lib_ms,
+               library_note="yardstick: K x torch.matmul of H·U (bf16), the "
+                            "cell's GEMM alone; the port never calls it",
+               instance_iters_per_s=B * K / (k_ms / 1e3),
+               cell_tile=dict(rows=_build.CELL_BM, units=_build.ROLLOUT_HB,
+                              gate_columns=4 * _build.ROLLOUT_HB,
+                              ctas="persistent, one an SM",
+                              cluster_ctas=_build.ROLLOUT_CLUSTER,
+                              cluster="neighbouring row bands; each Ut "
+                                      "stage by one TMA multicast"),
+               device_us_by_part=parts["device_us_by_part"],
+               cell_us_per_iteration=parts["device_us_by_part"]["cell"] / K,
+               device_ms=parts["device_ms"], wall_ms=parts["wall_ms"],
+               busy_share=parts["busy_share"])
     say("b rollout", **row)
     report["rollout"] = row
     return scaled, sc, xyz
@@ -946,6 +984,20 @@ def busy_share(fn, top=12):
     by_kernel, device = device_time_by_kernel(fn, top)
     return dict(device_ms_by_kernel=by_kernel, device_ms=device,
                 wall_ms=wall, busy_share=device / wall)
+
+
+def rollout_breakdown(fn):
+    """busy_share of one rollout call, with its device µs summed by part
+    (ROLLOUT_PARTS: the cell GEMM, the KKT colpasses, the finish and update
+    kernels; "other": U's re-laying, the state's zeroing)."""
+    b = busy_share(fn, top=64)
+    parts = dict.fromkeys([p for p, _ in ROLLOUT_PARTS] + ["other"], 0.0)
+    for name, row in b["device_ms_by_kernel"].items():
+        part = next((p for p, keys in ROLLOUT_PARTS
+                     if any(k in name for k in keys)), "other")
+        parts[part] += row["ms"] * 1e3
+    b["device_us_by_part"] = parts
+    return b
 
 
 # The training kernels' phases: (f) the fast profile, (l) the float32 one.
@@ -3764,6 +3816,7 @@ def snapshot(path):
     from iadmm_tpu_torch.api import make_solver
     from iadmm_tpu_torch.kernels import _build
     from iadmm_tpu_torch.kernels import lstm_cell as lc
+    from iadmm_tpu_torch.kernels import rollout_kernel as rk
     from iadmm_tpu_torch.kernels import train_rollout as ttr
     from iadmm_tpu_torch.scaling import scale_batch
     from iadmm_tpu_torch.solvers.cells import lstm_init
@@ -3788,6 +3841,18 @@ def snapshot(path):
         keys, x, H, C = cell_case(params, B, S, h, hc, g)
         out[f"cell f32 B={B} S={S} h={h} {hc}"] = lc.cell_forward(
             *keys, x, H, C, "float32")
+    # the serving rollout's own (x, y, z): the flagship batch at K=6 and
+    # K=100, and its two ragged shapes (S = 1037 with h = 808; h = 212)
+    scaled, _ = scale_batch(qp_batch(SERVE_BATCH, seed=1))
+    for K in (K_CHECK, K_ITERS):
+        out[f"rollout B={SERVE_BATCH} K={K}"] = rk.fused_rollout(
+            params, scaled, hidden=HIDDEN, K=K, sigma=SIGMA)
+    for n, mi, me, h in ROLLOUT_RAGGED:
+        p = lstm_init(torch.Generator().manual_seed(1), 2, h, K_ITERS,
+                      device="cuda")
+        d = scale_batch(qp_batch(2, seed=3, n=n, mi=mi, me=me))[0]
+        out[f"rollout B=2 S={n + mi + me} h={h} K={K_ITERS}"] = \
+            rk.fused_rollout(p, d, hidden=h, K=K_ITERS, sigma=SIGMA)
     scaled, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
     w, st, dd = train_inputs(params, scaled)
     pr, dr, final, _ = ttr.train_fwd_cuda(w, st, dd, t0=0, J=K_CHECK,
@@ -3858,8 +3923,9 @@ def time_rows(path):
     5f) and the segment pair at B=16 (6, 6f, 7, 7f) over J=100, a
     fused chunk update at B=2 at both profiles (three in a row), solves
     of B=8 at both profiles (three requests, twice; a solve's device
-    breakdown, and Ã⁻¹'s formation alone six times), and the forward's
-    device breakdown and busy share.  Run in
+    breakdown, the 'fused' solve by stage six times, and Ã⁻¹'s formation
+    alone six times), the rollout's and the forward's device breakdown
+    and busy share.  Run in
     two checkouts, in turns, to compare them on one card."""
     import torch
     from iadmm_tpu_torch.api import make_solver
@@ -3891,6 +3957,8 @@ def time_rows(path):
     scaled, _ = scale_batch(data)
     out["2 rollout"] = cuda_ms(lambda: rk.fused_rollout(
         params, scaled, hidden=HIDDEN, K=K_ITERS, sigma=SIGMA), reps=3)
+    out["2 rollout busy"] = rollout_breakdown(lambda: rk.fused_rollout(
+        params, scaled, hidden=HIDDEN, K=K_ITERS, sigma=SIGMA))
     data, st2, rho = stage2_iterates(params)
     for key, solver, kw in STAGE2_ROWS:
         fn, op = stage2_call(solver, data, rho)
@@ -3987,9 +4055,49 @@ def time_rows(path):
         # what spreads a solve: its device ms by kernel, and Ã⁻¹'s
         # formation alone (the batched LU inverse; six calls, CUDA events)
         out[f"{name} busy"] = busy_share(lambda: solve(req), top=16)
+    # the 'fused' solve by stage (Ruiz, rollout, Ã⁻¹, Stage II), the three
+    # requests twice
+    out["solve bfloat16 breakdown"] = [
+        serve_breakdown(params, qp_batch(SERVE_BATCH, seed=100 + r % 3))
+        for r in range(6)]
     out["kkt_inverse"] = [cuda_ms(lambda: s2.kkt_inverse(data, rho, SIGMA),
                                   reps=1, warmup=int(i == 0))
                           for i in range(6)]
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def time_rollout(path):
+    """Time this checkout's serving rollout alone (row 2: B=8, K=100) and
+    write the times to ``path`` as JSON, its (x, y, z) to ``path``.pt
+    (for --compare): calls of one shape back to back; a B=7 call alone;
+    B=8 and B=7 calls in turn (a batch and its last, partial one); and
+    twice the device breakdown and busy share of a B=8 call.  Run in two
+    checkouts, in turns, to compare them on one card."""
+    import torch
+    from iadmm_tpu_torch.kernels import rollout_kernel as rk
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    params = lstm_init(torch.Generator().manual_seed(0), 2, HIDDEN, K_ITERS,
+                       device="cuda")
+    full = scale_batch(qp_batch(SERVE_BATCH, seed=1))[0]
+    part = scale_batch(qp_batch(SERVE_BATCH - 1, seed=2))[0]
+
+    def call(data):
+        return rk.fused_rollout(params, data, hidden=HIDDEN, K=K_ITERS,
+                                sigma=SIGMA)
+
+    out = dict(card=torch.cuda.get_device_name(0))
+    out["B=8 ms"] = [cuda_ms(lambda: call(full), reps=5) for _ in range(2)]
+    out["B=7 ms"] = cuda_ms(lambda: call(part), reps=5)
+    out["B=8 then B=7, ms a pair"] = [
+        cuda_ms(lambda: (call(full), call(part)), reps=3) for _ in range(2)]
+    out["B=8 busy"] = [rollout_breakdown(lambda: call(full))
+                       for _ in range(2)]
+    torch.save({f"rollout B={SERVE_BATCH} K={K_ITERS}": [
+        t.cpu() for t in call(full)]}, path + ".pt")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)
@@ -4034,10 +4142,11 @@ def main(argv=()) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv:
-        modes = {"--snapshot": snapshot, "--time-rows": time_rows}
+        modes = {"--snapshot": snapshot, "--time-rows": time_rows,
+                 "--time-rollout": time_rollout}
         if argv[0] not in modes or len(argv) != 2:
             print("usage: chip_smoke.py [--snapshot OUT | --compare A B | "
-                  "--time-rows OUT]", file=sys.stderr)
+                  "--time-rows OUT | --time-rollout OUT]", file=sys.stderr)
             return 2
         return modes[argv[0]](argv[1])
     say("setup", torch=torch.__version__, cuda=torch.version.cuda,

@@ -50,13 +50,23 @@ CELL_HB = {"bfloat16": header_int("cell_gemm.cuh", "HB_BF16"),
            "float32": header_int("cell_gemm.cuh", "HB_F32")}  # units a tile
 UT_ALIGN = header_int("cell_gemm.cuh", "UT_ALIGN")  # Ut's row padding
 DELTA_HB = header_int("cell_gemm.cuh", "DELTA_HB")  # units a delta partial
+# The serving rollout's own cell tile: hidden units a tile, CTAs a cluster
+ROLLOUT_HB = header_int("cell_gemm.cuh", "HB_ROLLOUT")
+ROLLOUT_CLUSTER = header_int("cell_gemm.cuh", "CL_ROLLOUT")
 KKT_ROWS = header_int("kkt_matvec.cuh", "ROWS")  # rows per colpass chunk
 
 
-def cell_tiles(h: int, gate: str) -> int:
+def cell_tiles(h: int, gate: str = "bfloat16", hb: int | None = None) -> int:
     """Unit tiles of the cell GEMM at hidden width ``h`` for weights of
-    dtype ``gate`` ('bfloat16' or 'float32')."""
-    return -(-h // CELL_HB[gate])
+    dtype ``gate`` ('bfloat16' or 'float32'), or of ``hb`` units each where
+    given (the rollout's ``ROLLOUT_HB``)."""
+    return -(-h // (hb or CELL_HB[gate]))
+
+
+def ut_ld(h: int) -> int:
+    """The row length of Ut, and of the rollout's H: ``h`` rounded up to
+    ``UT_ALIGN`` (16-byte bf16 rows, as the TMA reads them)."""
+    return -(-h // UT_ALIGN) * UT_ALIGN
 
 
 def row_partials(h: int, gate: str) -> int:

@@ -203,8 +203,11 @@ inline void features(const Problem& P, int t, const float* xv,
 // receives H' unrounded), the update.  The in and out vectors, and C and
 // C_out, may be the same (in place); H_out must not alias H.  r, g
 // (B, n+m), cell_partial (cell::n_partials(h), B·(n+m)) are scratch.  loss:
-// as features.
-template <typename T>
+// as features.  ROLLOUT (bf16 only, the serving rollout): the cell runs on
+// the rollout's wide tile (cell::launch_rollout; w.Ut re-laid for
+// HB_ROLLOUT, H and H_out with rows of cell::ut_ld(h)), else on the
+// 128 x 128 tile the training pair's sums are defined by.
+template <typename T, bool ROLLOUT = false>
 inline void iteration(const Problem& P, const Weights& w, int t,
                       const float* xv, const float* x, const float* y,
                       const float* z, const void* H, const void* C,
@@ -215,8 +218,15 @@ inline void iteration(const Problem& P, const Weights& w, int t,
                       const Loss* loss = nullptr) {
   const int M = P.B * (P.n + P.m);
   features<T>(P, t, xv, x, y, z, r, g, ks, s, loss);
-  cell::launch<T, T, float>(xv, g, 1, 0, H, C, w.W, w.Ut, w.b, w.Wh,
-                            H_out, C_out, cell_partial, M, w.h, s, H_f32);
+  if constexpr (ROLLOUT) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value,
+                  "the rollout's tile is a bf16 tile");
+    cell::launch_rollout(xv, g, H, cell::ut_ld(w.h), C, w.W, w.Ut, w.b,
+                         w.Wh, H_out, C_out, cell_partial, M, w.h, s);
+  } else {
+    cell::launch<T, T, float>(xv, g, 1, 0, H, C, w.W, w.Ut, w.b, w.Wh,
+                              H_out, C_out, cell_partial, M, w.h, s, H_f32);
+  }
   update_kernel<<<eblocks(M), 256, 0, s>>>(
       cell_partial, cell::n_partials(w.h), w.bh, xv, xv_out, x, x_out, y, y_out,
       z, z_out, P.zl, P.zu, P.rho_raw, P.alpha_raw, P.rhom, t, P.n, P.m,

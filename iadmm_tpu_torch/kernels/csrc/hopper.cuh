@@ -3,10 +3,11 @@
 // forward and the backward's recompute) and the weight-side GEMMs of
 // gemm_bf16.cuh (the training backward's dH and dU).
 //
-// One CTA computes a BM x BN = 128 x 128 float32 tile of A·B:
-//  * warpgroups 0 and 1 consume: each runs wgmma.mma_async m64n128k16 (bf16
-//    operands from shared memory, float32 sums in 64 registers a thread) on
-//    its 64-row half of the tile;
+// One CTA computes a BM x (NB·BN) float32 tile of A·B, NB = 1 (128 x 128)
+// unless a kernel says:
+//  * warpgroups 0 and 1 consume: each runs NB wgmma.mma_async m64n128k16
+//    per k16 step (bf16 operands from shared memory, float32 sums in 64·NB
+//    registers a thread) on its 64-row half of the tile;
 //  * the threads after them produce: a ring of stages of BK = 64 (one A and
 //    one B tile each, 16 KB apiece, 128-byte swizzle) filled by TMA
 //    (cp.async.bulk.tensor, one thread) and handed over through mbarriers:
@@ -15,6 +16,14 @@
 //    warp and 3 stages where the TMA reads both operands, so that two
 //    CTAs share an SM and one's epilogue runs beside the other's main
 //    loop; a warpgroup and 4 stages, one CTA an SM, where threads load.
+// A kernel may also run the core persistently (one CTA an SM walking many
+// tiles: produce and consume take the ring's running step count, so the
+// producer fills the next tile's stages while the consumers finish this
+// one) and over a cluster of CL CTAs on neighbouring row bands of the same
+// columns: each CTA's producer loads its own A tile and 1/CL of the B
+// stage, which one TMA multicast writes into every CTA of the cluster; a
+// stage is free again once the consumers of all CL CTAs have released it
+// (the "empty" barriers count a remote arrive of each consumer warp).
 // An operand the TMA cannot read (float32 elements, which must be rounded
 // to bf16 on the way; a row stride that is not a multiple of 16 bytes; an
 // unaligned base) is loaded by the producer's threads instead: plain
@@ -57,11 +66,12 @@ constexpr int CONSUMERS = 256;  // warpgroups 0 and 1
 constexpr int PRODUCERS = 128;  // warpgroup 2, unless a kernel says
 constexpr int TILE_BYTES = BM * BK * 2;  // one operand's stage tile (16 KB)
 static_assert(BM == BN, "A and B stage tiles have the same size");
-// The ring of S stages (aligned to 1024 bytes, the 128-byte swizzle's
-// period) and its barriers; the extra 1024 bytes pay for the alignment.
-template <int S>
+// The ring of S stages of NB B boxes each (aligned to 1024 bytes, the
+// 128-byte swizzle's period) and its barriers; the extra 1024 bytes pay
+// for the alignment.
+template <int S, int NB = 1>
 constexpr int smem_bytes() {
-  return 1024 + S * 2 * TILE_BYTES + 2 * S * 8;
+  return 1024 + S * (1 + NB) * TILE_BYTES + 2 * S * 8;
 }
 
 // One GEMM operand as the core loads it (see the header).
@@ -118,6 +128,61 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+// The same box written at dst, and completing on bar, in every CTA of the
+// cluster named by the bits of mask.
+__device__ __forceinline__ void tma_load_mc(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
+}
+
+// ---- clusters, register budgets, named barriers ----
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+// Every thread of every CTA of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+// Arrive on the barrier at the shared address bar of the cluster's CTA
+// rank (this CTA's own included).  Release at CTA scope, the default: the
+// arrive orders this warp's finished wgmma reads of the stage before the
+// peer's next TMA write into it; .release.cluster made each k-step wait,
+// and the cluster ran slower than no cluster on the H100.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// A warpgroup's register budget (every thread of the warpgroup).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+// Barrier 1 over the consumer warpgroups only.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+}
 
 // wgmma shared-memory descriptor, 128-byte swizzle; byte offsets.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
@@ -127,15 +192,18 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A·B over one k16 slice; TA/TB: 1 for an MN-major operand.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+// d[OFF .. OFF+63] += A·B over one k16 slice; TA/TB: 1 for an MN-major
+// operand.
+template <int TA, int TB, int OFF = 0, int N>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[N], uint64_t da,
                                               uint64_t db) {
+  static_assert(OFF + 64 <= N, "the accumulators of one n128 block");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -148,19 +216,28 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
       " %48, %49, %50, %51, %52, %53, %54, %55, "
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
@@ -171,11 +248,30 @@ struct Ring {
   uint32_t full, empty;
 };
 
-// Carve the ring of S stages from raw dynamic shared memory and initialise
-// its barriers; every thread of the CTA must call it (it ends in a
-// barrier).  manual: some operand is loaded by the P producer threads (the
-// full barriers then count P arrivals, else the one TMA thread's).
-template <int S = STAGES, int P = PRODUCERS>
+// A stage's release by the consumers: every consumer thread arrives on its
+// CTA's empty barrier, or, over a cluster, each consumer warp once on the
+// barrier of every CTA of the cluster (whose producer writes into this
+// CTA's B tiles).
+template <int CL>
+__host__ __device__ constexpr int empty_count() {
+  return CL == 1 ? CONSUMERS : CL * (CONSUMERS / 32);
+}
+template <int CL>
+__device__ __forceinline__ void release(uint32_t empty) {
+  if (CL == 1) {
+    mbar_arrive(empty);
+  } else if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int c = 0; c < CL; ++c) mbar_arrive_cluster(empty, c);
+  }
+}
+
+// Carve the ring of S stages (NB B boxes each) from raw dynamic shared
+// memory and initialise its barriers; every thread of the CTA (of the
+// cluster, CL > 1) must call it (it ends in a barrier).  manual: some
+// operand is loaded by the P producer threads (the full barriers then
+// count P arrivals, else the one TMA thread's).
+template <int S = STAGES, int P = PRODUCERS, int NB = 1, int CL = 1>
 __device__ __forceinline__ Ring ring_init(uint8_t* raw, bool manual) {
   constexpr int STAGES = S;
   Ring r;
@@ -183,16 +279,19 @@ __device__ __forceinline__ Ring ring_init(uint8_t* raw, bool manual) {
   r.base = raw + pad;
   r.a = smem_addr(r.base);
   r.b = r.a + STAGES * TILE_BYTES;
-  r.full = r.b + STAGES * TILE_BYTES;
+  r.full = r.b + STAGES * NB * TILE_BYTES;
   r.empty = r.full + STAGES * 8;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(r.full + 8 * s, manual ? P : 1);
-      mbar_init(r.empty + 8 * s, CONSUMERS);
+      mbar_init(r.empty + 8 * s, empty_count<CL>());
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  if (CL > 1)
+    cluster_sync();   // no multicast before every CTA's barriers exist
+  else
+    __syncthreads();
   return r;
 }
 
@@ -266,24 +365,35 @@ __device__ __forceinline__ void tma_tile(const CUtensorMap* map, uint32_t dst,
 // The main loop's producer: the P threads after the consumers (warpgroup
 // 2, or one warp) fill the ring of S stages with the A and B tiles of the
 // K loop, then return (in TMA mode all but the first return at once).
-template <bool A_K, bool B_K, int S = STAGES, int P = PRODUCERS>
+// it0: the ring's steps before this tile (a persistent kernel's running
+// count).  NB > 1 takes both operands by TMA (the caller checks), B
+// K-major, one box of 128 columns each, over a cluster of CL > 1 CTAs
+// (which walk the same B columns): box j is loaded by the CTA j % CL and
+// multicast to all of them.
+template <bool A_K, bool B_K, int S = STAGES, int P = PRODUCERS, int NB = 1,
+          int CL = 1>
 __device__ __forceinline__ void produce(const CUtensorMap* ma,
                                         const CUtensorMap* mb,
                                         const Operand& a, const Operand& b,
                                         int m0, int n0, int K,
-                                        const Ring& r) {
+                                        const Ring& r, int it0 = 0) {
+  static_assert(NB == 1 || (B_K && CL > 1), "wide B tiles are K-major and "
+                "come over a cluster");
   constexpr int STAGES = S;
   const int nk = (K + BK - 1) / BK;
   const int ptid = threadIdx.x - CONSUMERS;
   const bool manual = !a.tma || !b.tma;
   if (!manual && ptid != 0) return;
-  const uint32_t tx = (a.tma ? TILE_BYTES : 0) + (b.tma ? TILE_BYTES : 0);
+  const uint32_t tx =
+      (a.tma ? TILE_BYTES : 0) + (b.tma ? NB * TILE_BYTES : 0);
   for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % STAGES;
+    const int it = it0 + kt;
+    const int s = it % STAGES;
     const uint32_t full = r.full + 8 * s;
-    mbar_wait(r.empty + 8 * s, ((kt / STAGES) & 1) ^ 1);
-    const uint32_t sa = r.a + s * TILE_BYTES, sb = r.b + s * TILE_BYTES;
-    if (manual) {
+    mbar_wait(r.empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+    const uint32_t sa = r.a + s * TILE_BYTES,
+                   sb = r.b + s * NB * TILE_BYTES;
+    if (NB == 1 && manual) {
       uint8_t* pa = r.base + s * TILE_BYTES;
       uint8_t* pb = r.base + (STAGES + s) * TILE_BYTES;
       if (!a.tma)
@@ -300,7 +410,18 @@ __device__ __forceinline__ void produce(const CUtensorMap* ma,
       else
         mbar_arrive(full);
       if (a.tma) tma_tile<A_K>(ma, sa, full, m0, kt);
-      if (b.tma) tma_tile<B_K>(mb, sb, full, n0, kt);
+      if (b.tma) {
+        if constexpr (NB == 1) {
+          tma_tile<B_K>(mb, sb, full, n0, kt);
+        } else {
+          const int rank = cluster_rank();
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            if (j % CL == rank)
+              tma_load_mc(sb + j * TILE_BYTES, mb, full, kt * BK,
+                          n0 + j * BN, static_cast<uint16_t>((1u << CL) - 1));
+        }
+      }
     } else {
       mbar_arrive(full);
     }
@@ -308,25 +429,31 @@ __device__ __forceinline__ void produce(const CUtensorMap* ma,
 }
 
 // The main loop's consumers: warpgroups 0 and 1 end with acc = A[m0 ..
-// m0+127, :]·B[:, n0 .. n0+127], their 64-row half, in wgmma's accumulator
-// layout (thread t of warpgroup w, warp q = (t%128)/32, lane l:
+// m0+127, :]·B[:, n0 .. n0+128·NB-1], their 64-row half, in wgmma's
+// accumulator layout (thread t of warpgroup w, warp q = (t%128)/32, lane l:
 // acc[4c + 2r + e] is row 64w + 16q + l/4 + 8r, column 8c + 2(l%4) + e of
-// the tile).
-template <bool A_K, bool B_K, int S = STAGES>
+// the tile; c < 16·NB, the n128 instruction c / 16's column 8(c%16) + …).
+// Each k16 step runs the NB n128 instructions on their own columns, so
+// every sum is the one a 128 x 128 tile forms.  it0: as produce's; every
+// stage, the last included, is released.
+template <bool A_K, bool B_K, int S = STAGES, int NB = 1, int CL = 1>
 __device__ __forceinline__ void consume(int K, const Ring& r,
-                                        float (&acc)[64]) {
+                                        float (&acc)[64 * NB], int it0 = 0) {
+  static_assert(NB == 1 || (NB == 2 && B_K), "one or two n128 blocks; "
+                "two of a K-major B");
   constexpr int STAGES = S;
   const int nk = (K + BK - 1) / BK;
   const int wg = threadIdx.x >> 7;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64 * NB; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(r.full + 8 * s, (kt / STAGES) & 1);
+    const int it = it0 + kt;
+    const int s = it % STAGES;
+    mbar_wait(r.full + 8 * s, (it / STAGES) & 1);
     // this warpgroup's 64 rows: the first half of a K-major box, or the
     // first of an MN-major tile's two boxes
     const uint32_t sa = r.a + s * TILE_BYTES + wg * (64 * 128);
-    const uint32_t sb = r.b + s * TILE_BYTES;
+    const uint32_t sb = r.b + s * NB * TILE_BYTES;
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
@@ -339,16 +466,20 @@ __device__ __forceinline__ void consume(int K, const Ring& r,
       const uint64_t db = B_K ? desc(sb + kk * 32, 16, 1024)
                               : desc(sb + kk * 2048, 64 * 128, 1024);
       wgmma_m64n128<A_K ? 0 : 1, B_K ? 0 : 1>(acc, da, db);
+      if constexpr (NB == 2)   // the second n128 block: the next B box
+        wgmma_m64n128<A_K ? 0 : 1, 0, 64>(
+            acc, da, desc(sb + TILE_BYTES + kk * 32, 16, 1024));
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     // keep this step's group in flight; the previous one is done, so its
     // stage goes back to the producer
     asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
     fence_acc(acc);
-    if (kt > 0) mbar_arrive(r.empty + 8 * ((kt - 1) % STAGES));
+    if (kt > 0) release<CL>(r.empty + 8 * ((it - 1) % STAGES));
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
   fence_acc(acc);
+  if (nk > 0) release<CL>(r.empty + 8 * ((it0 + nk - 1) % STAGES));
 }
 
 // Both roles: consumers end with acc (consume's layout), producers return

@@ -53,18 +53,19 @@ def check_cell_weights(W, U, b, W_h, b_h, h: int) -> None:
                          f"expected {want}")
 
 
-def relaid_u(U: torch.Tensor, h: int) -> torch.Tensor:
-    """U (h, 4h) re-laid for the bf16 cell GEMM (``cell_gemm.cuh``): row
-    ``t·4·HB + g·HB + j`` holds column ``g·h + t·HB + j`` of U (gate g of
-    hidden unit t·HB + j, HB = ``_build.CELL_HB['bfloat16']``), so one
-    unit tile's i, f, o, u columns are 4·HB consecutive rows; units past h
+def relaid_u(U: torch.Tensor, h: int,
+             hb: int = _build.CELL_HB["bfloat16"]) -> torch.Tensor:
+    """U (h, 4h) re-laid for a bf16 cell GEMM tile of ``hb`` units
+    (``cell_gemm.cuh``; the per-step cell's ``_build.CELL_HB['bfloat16']``,
+    or the rollout's ``_build.ROLLOUT_HB``): row ``t·4·hb + g·hb + j`` holds
+    column ``g·h + t·hb + j`` of U (gate g of hidden unit t·hb + j), so one
+    unit tile's i, f, o, u columns are 4·hb consecutive rows; units past h
     are zero rows, and each row is zero-padded to a multiple of
     ``_build.UT_ALIGN`` (the TMA's 16-byte row rule).  Shape
-    (cell_tiles(h)·4·HB, h rounded up), in U's dtype (the kernels take
+    (cell_tiles(h, hb=hb)·4·hb, ut_ld(h)), in U's dtype (the kernels take
     bf16)."""
-    hb = _build.CELL_HB["bfloat16"]
-    nt = _build.cell_tiles(h, "bfloat16")
-    ld = -(-h // _build.UT_ALIGN) * _build.UT_ALIGN
+    nt = _build.cell_tiles(h, hb=hb)
+    ld = _build.ut_ld(h)
     out = torch.zeros((ld, 4, nt * hb), dtype=U.dtype, device=U.device)
     out[:h, :, :h] = U.reshape(h, 4, h)
     return (out.reshape(ld, 4, nt, hb).permute(2, 1, 3, 0)

@@ -2,10 +2,11 @@
 
 Replaces ``iadmm_tpu/kernels/rollout_kernel.py::_rollout_kernel``.  On the
 TPU one kernel runs all K iterations per instance with everything resident
-in VMEM.  Here the host loops over K and each iteration is one call into
-``csrc/rollout.cu`` (KKT-feature passes, the cell GEMM, the ADMM update;
-see its header for the design and the bound).  No library call sits inside
-the loop.
+in VMEM.  Here one call into ``csrc/rollout.cu`` launches the K iterations
+(KKT-feature passes, the cell GEMM on the rollout's own wide persistent
+tile, the ADMM update; see its header and ``cell_gemm.cuh`` for the design
+and the bound), six launches an iteration issued by a loop in C.  No
+library call sits inside the loop.
 
 :func:`rollout_plain` is the same function in plain PyTorch, with the same
 numerics: vectors rounded to bf16 before every matvec, bf16 Q/A0/W/U/W_h
@@ -109,8 +110,8 @@ def _rollout_cuda(params: Dict, data: QPBatch, hidden: int, K: int,
     rhom = vec(rho_vector(1.0, data.eq_mask))  # (B, m) row multipliers
     rho_raw, alpha_raw = vec(params["rho"]), vec(params["alpha"])
     W = vec(params["W"], bf)
-    U = _build.aligned(params["U"].to(bf))
-    Ut = relaid_u(U, h)  # once for all K iterations
+    # U re-laid for the rollout's tile, once for all K iterations
+    Ut = relaid_u(params["U"].to(bf), h, _build.ROLLOUT_HB)
     b = vec(params["b"])
     Wh = vec(params["W_h"].reshape(-1), bf)
     bh = vec(params["b_h"].reshape(-1))
@@ -123,23 +124,20 @@ def _rollout_cuda(params: Dict, data: QPBatch, hidden: int, K: int,
 
     xv, x, y, z = zeros(B, S), zeros(B, n), zeros(B, m), zeros(B, m)
     r, g = empty(B, S), empty(B, S)
-    H_in, H_out = zeros(B * S, h, dt=bf), empty(B * S, h, dt=bf)
+    # H's rows padded to 16 bytes, so that the TMA reads it whatever h
+    ldh = _build.ut_ld(h)
+    H_a, H_b = zeros(B * S, ldh, dt=bf), empty(B * S, ldh, dt=bf)
     C = zeros(B * S, h)
     mv_partial = empty(B, (S + _build.KKT_ROWS - 1) // _build.KKT_ROWS, n)
     rowdot = empty(B, m)
     cell_partial = cell_scratch(B * S, h, dev)
-    fn = _build.function("rollout", "iadmm_rollout_step", _ROLLOUT_ARGS)
-    stream = _build.stream_ptr(dev)
-    fixed = [t.data_ptr() for t in (Q, A0, p, zl, zu, rhom, rho_raw,
-                                    alpha_raw, W, Ut, b, Wh, bh, xv, x, y, z,
-                                    r, g)]
-    for t in range(K):
-        code = fn(t, *fixed, H_in.data_ptr(), H_out.data_ptr(),
-                  C.data_ptr(), mv_partial.data_ptr(), rowdot.data_ptr(),
-                  cell_partial.data_ptr(), B, n, m, h, float(sigma), stream)
-        _build.check(code, "iadmm_rollout_step")
-        fused_rollout.launches += 1
-        H_in, H_out = H_out, H_in
+    fn = _build.function("rollout", "iadmm_rollout", _ROLLOUT_ARGS)
+    code = fn(K, *(t.data_ptr() for t in (
+        Q, A0, p, zl, zu, rhom, rho_raw, alpha_raw, W, Ut, b, Wh, bh, xv, x,
+        y, z, r, g, H_a, H_b, C, mv_partial, rowdot, cell_partial)),
+        B, n, m, h, float(sigma), _build.stream_ptr(dev))
+    _build.check(code, "iadmm_rollout")
+    fused_rollout.launches += K
     return x, y, z
 
 
@@ -148,8 +146,8 @@ def fused_rollout(params: Dict, data: QPBatch, *, hidden: int, K: int,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run K learned iterations from a zero state; returns (x, y, z).
 
-    On CUDA data this launches the kernels of ``csrc/rollout.cu`` once per
-    iteration; on CPU data it runs :func:`rollout_plain`.  Both run the
+    On CUDA data this launches the K iterations of ``csrc/rollout.cu``
+    from one call; on CPU data it runs :func:`rollout_plain`.  Both run the
     LSTM cell with learned schedules: ``params`` must hold the LSTM's keys
     and shapes (ValueError otherwise), whichever cell they came from."""
     missing = [k for k in CELL_KEYS + ("rho", "alpha") if k not in params]

@@ -133,6 +133,49 @@ def test_rollout_matches_plain(dev):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("h,n,mi,me", [(20, 37, 21, 20), (72, 90, 40, 47),
+                                        (212, 60, 30, 37)])
+def test_rollout_wide_tile_matches_plain(dev, h, n, mi, me):
+    """The rollout's own cell tile (64 units of four gates, persistent
+    CTAs, a cluster of 2 on neighbouring row bands) at ragged shapes:
+    B·(n+m) not a multiple of the 128-row band (a cluster's second band
+    partly or wholly past it), the last unit tile partly masked, and h = 20
+    and 212, whose bf16 H rows are padded to 16 bytes for the TMA.  Two
+    calls bitwise equal."""
+    data = _qp(dev, B=3, n=n, mi=mi, me=me)
+    p, _ = _params(5, h)
+    p = {k: v.to(dev) for k, v in p.items()}
+    out = troll.fused_rollout(p, data, hidden=h, K=6)
+    again = troll.fused_rollout(p, data, hidden=h, K=6)
+    ref = troll.rollout_plain(p, data, hidden=h, K=6)
+    for a, a2, b in zip(out, again, ref):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
+
+
+def test_rollout_calls_independent(dev):
+    """A rollout call does not depend on the calls before it: shape A, then
+    shape B (another batch, n, m and h), then A at another K and sigma, then
+    A again; the two A calls at K=6 are bitwise equal and every call
+    matches rollout_plain."""
+    shapes = dict(a=(dict(B=3, n=37, mi=21, me=20), 72),
+                  b=(dict(B=2, n=90, mi=40, me=47), 20))
+    outs = []
+    for key, K, sigma in (("a", 6, 6e-6), ("b", 6, 6e-6), ("a", 4, 1e-4),
+                          ("a", 6, 6e-6)):
+        shape, h = shapes[key]
+        data = _qp(dev, **shape)
+        p, _ = _params(5, h)
+        p = {k: v.to(dev) for k, v in p.items()}
+        out = troll.fused_rollout(p, data, hidden=h, K=K, sigma=sigma)
+        ref = troll.rollout_plain(p, data, hidden=h, K=K, sigma=sigma)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
+        outs.append(out)
+    for a, a2 in zip(outs[0], outs[3]):
+        assert torch.equal(a, a2)
+
+
 @pytest.mark.parametrize("refine", [0, 1])
 def test_stage2_matches_plain(dev, refine):
     data = _qp(dev)
