@@ -62,7 +62,13 @@ routes (the ghost cells, the theory traces, the BCOO sparse route):
       bitwise equal; its device time (launches queued behind a sleep, so
       the Python wrapper's cost is hidden), warm (back to back) and cold
       (each launch after an L2 flush), beside its bound, the plain version
-      and ``torch.bmm`` of the densified bf16 matrix;
+      and ``torch.bmm`` of the densified bf16 matrix; then the grouped
+      launch (``bsr_matvec_group``) on the step's first group (A0·u, A0ᵀ·ν,
+      Q·u, u and ν sliced from one xv) at the same points and on the
+      ragged case: one launch, each output bitwise the single-product
+      kernel's and held to the plain version, two calls bitwise equal,
+      timed (warm, cold, paced) beside its bound (the sum of its products')
+      and the same products as three single launches;
   (j) ``harness.train`` on the BSR route (22 generated instances: 10
       train, 2 val, 10 test; 2 epochs at B=2, J = outer_T = 50,
       train_backend='step'), then ``run_test`` of the reloaded checkpoint
@@ -72,7 +78,10 @@ routes (the ghost cells, the theory traces, the BCOO sparse route):
       hidden-unit permutation, at least 4 float32 ulps) and to the dense
       profile, whose cell is the
       bf16-gate cell kernel (the first 6 steps to 1e-2); a profiled chunk
-      update gives the device's busy share;
+      update gives the device's busy share; the BSR launches are counted:
+      three grouped launches a step forward and three backward (6·J − 1 a
+      chunk: at step 0 only A0ᵀ·r2 and the residuals need a gradient), and
+      three a step in each ``run_test`` rollout;
   (k) the float32-gate cell kernel against its plain version (B=8,
       S=2000, h=800, float32 and bf16 H/C, and a ragged small case): delta,
       H', C' to F32_CELL_TOL of max|ref| (a bf16 H'/C' to one bf16 ulp
@@ -195,10 +204,14 @@ forward at B=2, the float32 stream pair and segment
 pair (segments of 2) at J=6 with every gradient and start-state
 cotangent, the J=100 forward at B=2 at both profiles, one bf16 segment
 call at B=16, (d)'s first request with its LU and pre-polish references,
-a float32 ``make_solver`` solve, and Stage II's three solvers at B=8, N=20
+a float32 ``make_solver`` solve, Stage II's three solvers at B=8, N=20
 on the serving rollout's iterates ('kkt' also at refine 1, 'direct' also
-at refine 0; 'cg' with its unmasked-iteration counts), in one file per
-checkout (copy this script into an older checkout first):
+at refine 0; 'cg' with its unmasked-iteration counts), and the BSR route
+at Sparse_QP_Large (each single product and its VJP at B=2, bf16 and
+float32 tiles, TM 8 and 128; a J=6 chunk loss with its final state and
+every gradient; the (x, y, z) and traces of a K=6 ``eval_rollout_sparse``
+at B=10), in one file per checkout (copy this script into an older
+checkout first):
 
     python3 chip_smoke.py --snapshot a.pt
     python3 chip_smoke.py --compare a.pt b.pt
@@ -211,10 +224,15 @@ turns:
 
     python3 chip_smoke.py --time-rows a.json
 
-and the serving rollout alone (row 2, with a batch shape that changes
-from call to call), the same way:
+(with row 8 and the BSR route: a Q product and the step's first group,
+warm at B=2 and cold at B=10, from the profiler's kernel times, and
+paced; a chunk update's ms, device ms by kernel, busy share and BSR
+launches; ``run_test``'s Parallel Time and BSR launches), the serving
+rollout alone (row 2, with a batch shape that changes from call to call)
+and row 8 with the BSR route alone, the same way:
 
     python3 chip_smoke.py --time-rollout a.json
+    python3 chip_smoke.py --time-bsr a.json
 """
 
 from __future__ import annotations
@@ -1649,10 +1667,74 @@ def bsr_case(name, M, MT, dense, B, m, n, tol, timed, rows):
     return row
 
 
+def bsr_group_case(name, mats, vs, tol, timed, rows):
+    """One grouped launch of the products ``mats[i]·vs[i]``: launched once
+    (the counter moves by one), each output bitwise the single-product
+    kernel's and held to the plain version, a bitwise repeat and, if
+    ``timed``, its times beside its bound (the sum of its products' bytes)
+    and beside the same products as single launches."""
+    import torch
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    from iadmm_tpu_torch.kernels.bounds import bsr_matvec_group as bound, \
+        stored_tiles
+    before = tsm.bsr_matvec.launches
+    outs = tsm.bsr_matvec_group(mats, vs)
+    torch.cuda.synchronize()
+    if tsm.bsr_matvec.launches != before + 1:
+        raise PhaseError(f"{name}: the grouped call was not one launch")
+    errs = []
+    for i, (M, v, out) in enumerate(zip(mats, vs, outs)):
+        if not torch.equal(out, tsm.bsr_matvec(M, v)):
+            raise PhaseError(f"{name}: product {i} is not bitwise the "
+                             f"single-product kernel's")
+        ref = tsm.bsr_matvec_plain(M, v)
+        errs.append(compare(f"{name} product {i}", out, ref,
+                            tol * float(ref.abs().max()), 0.0))
+    if not all(torch.equal(a, b)
+               for a, b in zip(tsm.bsr_matvec_group(mats, vs), outs)):
+        raise PhaseError(f"{name}: two grouped calls gave different outputs")
+    B = vs[0].shape[0]
+    row = dict(case=name, B=B, grouped=True,
+               dtype=str(mats[0].vals.dtype).replace("torch.", ""),
+               products=[dict(shape=list(M.shape), tile=list(M.tile),
+                              K=int(M.cols.shape[2])) for M in mats],
+               max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs))
+    if timed:
+        # timed on contiguous vectors: the launch alone, no input copies
+        vs = [v.contiguous() for v in vs]
+        b_ms, b_by = bound([(stored_tiles(M.vals), B, *M.shape, *M.tile,
+                             M.vals.element_size()) for M in mats])
+        buf = torch.ones(FLUSH_BYTES // 4, device=DEV)
+
+        def flush():
+            buf.sum()
+
+        def singles():
+            return [tsm.bsr_matvec(M, v) for M, v in zip(mats, vs)]
+        row.update(
+            kernel_ms=queued_ms(lambda: tsm.bsr_matvec_group(mats, vs)),
+            kernel_cold_ms=queued_ms(lambda: tsm.bsr_matvec_group(mats, vs),
+                                     flush=flush),
+            paced_ms=cuda_ms(lambda: tsm.bsr_matvec_group(mats, vs),
+                             reps=50, warmup=5),
+            singles_ms=queued_ms(singles),
+            singles_cold_ms=queued_ms(singles, flush=flush),
+            singles_paced_ms=cuda_ms(singles, reps=50, warmup=5),
+            plain_ms=queued_ms(
+                lambda: tsm.bsr_matvec_group_plain(mats, vs), reps=20),
+            bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    say("i bsr group", **row)
+    return row
+
+
 def phase_bsr(ds, report):
     """(i): the BSR kernel against its plain version on the scaled
     Sparse_QP_Large operands (Q, A0, A0ᵀ) at B=2 and B=10, bf16 and
-    float32 tiles, and on a ragged (128, 128)-tile case."""
+    float32 tiles, and on a ragged (128, 128)-tile case; then the grouped
+    launch on the route's groups (A0·u, A0ᵀ·ν, Q·u) at the same points and
+    (M·v, Mᵀ·w, M·v') on the ragged case."""
     import numpy as np
     import torch
     from iadmm_tpu_torch.kernels.sparse_matvec import bsr_from_dense, \
@@ -1673,6 +1755,13 @@ def phase_bsr(ds, report):
                 m, n = M.shape
                 bsr_case(f"{nm} B={B}", M, MT, dense[nm], B, m, n, tol[dt],
                          True, rows)
+            # u and ν as the step slices them from xv: not contiguous, so
+            # the wrapper copies each before the one launch
+            g = torch.Generator().manual_seed(B * 11)
+            xv = torch.randn((B, SP_N + SP_MI), generator=g).to(DEV)
+            u, nu = xv[:, :SP_N], xv[:, SP_N:]
+            bsr_group_case(f"group (A0·u, A0ᵀ·ν, Q·u) B={B}", [A, AT, Q],
+                           [u, nu, u], tol[dt], True, rows)
             del Q, A, AT
         del scaled, Qd, Ad, dense
     g = torch.Generator().manual_seed(31)
@@ -1684,12 +1773,18 @@ def phase_bsr(ds, report):
         M, MT = bsr_pair_from_dense(Mr.numpy(), (128, 128), dt, device=DEV)
         bsr_case("ragged 1000x1500 (128,128)", M, MT, None, 2, 1000, 1500,
                  tol[dt], False, rows)
+        g = torch.Generator().manual_seed(37)
+        vs = [torch.randn((2, k), generator=g).to(DEV)
+              for k in (1500, 1000, 1500)]
+        bsr_group_case("group ragged 1000x1500 (128,128)", [M, MT, M], vs,
+                       tol[dt], False, rows)
     report["bsr"] = rows
     main = next(r for r in rows if r["case"] == f"Q B={SP_TRAIN_B}"
                 and r["dtype"] == "bfloat16")
     return dict(main, max_abs_err=max(r["max_abs_err"] for r in rows
                                       if r["dtype"] == "bfloat16"
-                                      and "kernel_ms" in r))
+                                      and "kernel_ms" in r
+                                      and not r.get("grouped")))
 
 
 def trace_gap(a, b, keys, upto=None):
@@ -1728,7 +1823,10 @@ def sparse_chunk_breakdown(cfg, ds, params, ids):
     def update():
         body(p, st, data, 0)
 
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    before = tsm.bsr_matvec.launches
     update()
+    bsr_launches = tsm.bsr_matvec.launches - before
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1738,10 +1836,27 @@ def sparse_chunk_breakdown(cfg, ds, params, ids):
         times.append((time.perf_counter() - t0) * 1e3)
     top, dev_ms = device_time_by_kernel(update, top=10)
     return dict(chunk_update_ms=times, device_ms=dev_ms,
+                bsr_launches=bsr_launches,
                 device_busy_share=dev_ms / min(times),
                 train_instance_iters_per_s=SP_TRAIN_B * SP_K
                 / (min(times) / 1e3),
                 device_ms_by_kernel=top)
+
+
+def sparse_cfg(data_size=SP_DATA):
+    """scripts/run_workload.py's Sparse_QP_Large profile on the BSR route;
+    the gate is open (eq_tol) so that 2 epochs write a checkpoint."""
+    from iadmm_tpu_torch.config import ExperimentConfig
+    return ExperimentConfig.from_dict(dict(
+        prob_type="Sparse_QP", num_var=SP_N, num_ineq=SP_MI,
+        data_size=data_size, hidden_dim=SP_H, sigma=SIGMA, outer_T=SP_K,
+        truncated_length=SP_K, test_outer_T=SP_K, batch_size=SP_TRAIN_B,
+        test_batch_size=SP_TEST_B, lr=5e-5, clip_grad_norm=1.0,
+        num_epoch=TRAIN_EPOCHS, val_frac=1 / 11, test_frac=5 / 11,
+        eq_tol=1e9, scaling=True, sparse=True, sparse_format="bsr",
+        matvec_mode="bf16", use_pallas=True, gate_dtype="bfloat16",
+        train_backend="step", feas_rest=True, feas_rest_num=POLISH_STEPS,
+        save_dir=SPARSE_DIR))
 
 
 def phase_sparse(ds, gen_s, report):
@@ -1751,7 +1866,6 @@ def phase_sparse(ds, gen_s, report):
     import dataclasses
     import numpy as np
     import torch
-    from iadmm_tpu_torch.config import ExperimentConfig
     from iadmm_tpu_torch.evaluation.driver import run_test
     from iadmm_tpu_torch.kernels import lstm_cell, sparse_matvec as tsm
     from iadmm_tpu_torch.problems.io import split_ids
@@ -1759,18 +1873,7 @@ def phase_sparse(ds, gen_s, report):
     from iadmm_tpu_torch.train import checkpoint as ckpt
     from iadmm_tpu_torch.train.harness import train
     shutil.rmtree(SPARSE_DIR, ignore_errors=True)
-    # scripts/run_workload.py's Sparse_QP_Large profile; the gate is open
-    # (eq_tol) so that 2 epochs write a checkpoint.
-    cfg = ExperimentConfig.from_dict(dict(
-        prob_type="Sparse_QP", num_var=SP_N, num_ineq=SP_MI,
-        data_size=SP_DATA, hidden_dim=SP_H, sigma=SIGMA, outer_T=SP_K,
-        truncated_length=SP_K, test_outer_T=SP_K, batch_size=SP_TRAIN_B,
-        test_batch_size=SP_TEST_B, lr=5e-5, clip_grad_norm=1.0,
-        num_epoch=TRAIN_EPOCHS, val_frac=1 / 11, test_frac=5 / 11,
-        eq_tol=1e9, scaling=True, sparse=True, sparse_format="bsr",
-        matvec_mode="bf16", use_pallas=True, gate_dtype="bfloat16",
-        train_backend="step", feas_rest=True, feas_rest_num=POLISH_STEPS,
-        save_dir=SPARSE_DIR))
+    cfg = sparse_cfg()
     train_ids, _, test_ids = split_ids(cfg.data_size, cfg.val_frac,
                                        cfg.test_frac, cfg.seed)
     if len(test_ids) < SP_TEST_B:
@@ -1791,9 +1894,12 @@ def phase_sparse(ds, gen_s, report):
     losses = [h["train_loss"] for h in res.history]
     if not all(np.isfinite(losses)) or len(losses) != TRAIN_EPOCHS:
         raise PhaseError(f"j train: losses {losses}")
-    # per chunk: 9 matvecs a step forward, all but 5 of step 0's backward
-    # (the detached start state), and one Qv a epoch for the train objective
-    want = chunks * (18 * SP_K - 5) + TRAIN_EPOCHS
+    # per chunk: three grouped launches a step forward (the KKT feature's
+    # two, the residuals' one) and three backward, but at step 0 (the
+    # detached start state) only A0ᵀ·r2's and the residuals'; one Qv a
+    # epoch for the train objective (18 * SP_K - 5 single launches a chunk
+    # before the products were grouped)
+    want = chunks * (6 * SP_K - 1) + TRAIN_EPOCHS
     if train_launches != want:
         raise PhaseError(f"j train: {train_launches} BSR launches, "
                          f"expected {want}")
@@ -1813,9 +1919,10 @@ def phase_sparse(ds, gen_s, report):
         before = bsr_c.launches
         reps[name] = run_test(routes[name], ds, params, test_ids=test_ids,
                               verbose=False, device=DEV)
-        if name == "bsr" and bsr_c.launches - before != 2 * 9 * SP_K:
+        # the warm-up and the timed batch, three grouped launches a step
+        if name == "bsr" and bsr_c.launches - before != 2 * 3 * SP_K:
             raise PhaseError(f"j run_test: {bsr_c.launches - before} BSR "
-                             f"launches, expected {2 * 9 * SP_K}")
+                             f"launches, expected {2 * 3 * SP_K}")
     launches = dict(bsr=bsr_c.launches, cell=cell_c.launches)
     peak = torch.cuda.max_memory_allocated()
     # comparisons, outside the counted path: the dense route at the BSR
@@ -3810,6 +3917,82 @@ def snapshot_stage2(params, out):
         del op
 
 
+SP_SNAP_SEED = 29   # the Sparse_QP_Large instances of --snapshot/--time-rows
+
+
+def sparse_snapshot_batches(B_big):
+    """(raw dataset, {B: (data, scaled data, scaling)} for B = SP_TRAIN_B
+    and ``B_big``) of Sparse_QP_Large instances generated from
+    SP_SNAP_SEED: the first SP_TRAIN_B, and the ``B_big`` after them."""
+    import numpy as np
+    from iadmm_tpu_torch.problems import generate, to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    ds = generate("Sparse_QP", num_var=SP_N, num_ineq=SP_MI,
+                  data_size=SP_TRAIN_B + B_big, seed=SP_SNAP_SEED)
+    out = {}
+    for B, ids in ((SP_TRAIN_B, np.arange(SP_TRAIN_B)),
+                   (B_big, np.arange(SP_TRAIN_B, SP_TRAIN_B + B_big))):
+        data = to_qp_batch(ds, ids, device=DEV)
+        out[B] = (data, *scale_batch(data))
+    return ds, out
+
+
+def snapshot_bsr(out):
+    """The BSR outputs that ``compare`` holds bitwise, built only from
+    ``bsr_matvec``, ``bsr_matvec_ad``, ``chunk_loss_sparse`` and
+    ``eval_rollout_sparse``: each single product (Q, A0, A0ᵀ; bf16 and
+    float32 tiles; TM 8 and 128) and its VJP at B=2; a J=6 chunk loss at
+    B=2 on the route's (8, 128) bf16 tiles with its final state and every
+    gradient; a K=6 eval_rollout_sparse at B=10: (x, y, z) and the
+    traces."""
+    import dataclasses
+    import torch
+    from iadmm_tpu_torch.kernels import sparse as tsp
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    from iadmm_tpu_torch.types import IterState, init_state
+    _, batches = sparse_snapshot_batches(SP_TEST_B)
+    _, small, _ = batches[SP_TRAIN_B]
+    g = torch.Generator().manual_seed(14)
+    for dt in (torch.bfloat16, torch.float32):
+        for tm in (8, 128):
+            Q = tsm.bsr_from_dense(small.Q, (tm, 128), dt, device=DEV)
+            A, AT = tsm.bsr_pair_from_dense(small.A0, (tm, 128), dt,
+                                            device=DEV)
+            for nm, M, MT in (("Q", Q, Q), ("A0", A, AT), ("A0T", AT, A)):
+                m, n = M.shape
+                v = torch.randn((SP_TRAIN_B, n), generator=g).to(DEV)
+                w = torch.randn((SP_TRAIN_B, m), generator=g).to(DEV)
+                vg = v.clone().requires_grad_(True)
+                (tsm.bsr_matvec_ad(M, MT, vg) * w).sum().backward()
+                out[f"bsr {nm} {str(dt)[6:]} TM={tm} B={SP_TRAIN_B}"] = (
+                    tsm.bsr_matvec(M, v), vg.grad)
+            del Q, A, AT
+    fields = [f.name for f in dataclasses.fields(IterState)]
+    params = lstm_init(torch.Generator().manual_seed(0), 2, SP_H, SP_K,
+                       device=DEV)
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    data = tsp.from_dense(small, fmt="bsr", tile=SP_TILE,
+                          dtype=torch.bfloat16)
+    st = init_state(SP_TRAIN_B, SP_N, SP_MI, SP_H, device=DEV)
+    loss, fin = tsp.chunk_loss_sparse(p, st, data, SIGMA, K_CHECK, SP_K, 0)
+    loss.backward()
+    out[f"bsr chunk loss J={K_CHECK} B={SP_TRAIN_B}"] = (
+        loss.detach(), *(getattr(fin, f).detach() for f in fields),
+        *(p[k].grad for k in GRAD_KEYS))
+    del data, fin, loss
+    orig, scaled, sc = batches[SP_TEST_B]
+    data = tsp.from_dense(scaled, fmt="bsr", tile=SP_TILE,
+                          dtype=torch.bfloat16)
+    with torch.no_grad():
+        fin, tr = tsp.eval_rollout_sparse(
+            params, init_state(SP_TEST_B, SP_N, SP_MI, SP_H, device=DEV),
+            data, orig, sc, SIGMA, K_CHECK)
+    out[f"bsr eval K={K_CHECK} B={SP_TEST_B}"] = (
+        fin.x, fin.y, fin.z, tr.obj, tr.primal_res, tr.dual_res, tr.ls_res)
+    torch.cuda.empty_cache()
+
+
 def snapshot(path):
     """Save this checkout's outputs that ``compare`` holds bitwise."""
     import torch
@@ -3910,6 +4093,7 @@ def snapshot(path):
     out["serve float32"] = tuple(getattr(r, f) for f in ("x", "y", "z",
                                                          "primal_res"))
     snapshot_stage2(params, out)
+    snapshot_bsr(out)
     torch.save({k: [t.cpu() for t in v] for k, v in out.items()}, path)
     return 0
 
@@ -3925,8 +4109,8 @@ def time_rows(path):
     of B=8 at both profiles (three requests, twice; a solve's device
     breakdown, the 'fused' solve by stage six times, and Ã⁻¹'s formation
     alone six times), the rollout's and the forward's device breakdown
-    and busy share.  Run in
-    two checkouts, in turns, to compare them on one card."""
+    and busy share, then row 8 and the BSR route (``time_rows_bsr``).
+    Run in two checkouts, in turns, to compare them on one card."""
     import torch
     from iadmm_tpu_torch.api import make_solver
     from iadmm_tpu_torch.kernels import _build
@@ -4063,6 +4247,111 @@ def time_rows(path):
     out["kkt_inverse"] = [cuda_ms(lambda: s2.kkt_inverse(data, rho, SIGMA),
                                   reps=1, warmup=int(i == 0))
                           for i in range(6)]
+    torch.cuda.empty_cache()
+    time_rows_bsr(out)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def bsr_device_us(fn, reps, flush=None):
+    """Device µs a call of ``fn`` spends in the BSR kernel, from one
+    profiled run of ``reps`` calls (each after ``flush()``, where given):
+    the kernel's own time, without launch gaps or host cost.  The mean of
+    the launches the profiler recorded (it can drop a few) times the
+    launches a call makes."""
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    before = tsm.bsr_matvec.launches
+    fn()
+    per_call = tsm.bsr_matvec.launches - before
+
+    def run():
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+    by_kernel, _ = device_time_by_kernel(run, top=64)
+    rows = [r for k, r in by_kernel.items() if "bsr_matvec_kernel" in k]
+    return (1e3 * sum(r["ms"] for r in rows)
+            / max(sum(r["calls"] for r in rows), 1) * per_call)
+
+
+def time_rows_bsr(out):
+    """Row 8 and the BSR route at Sparse_QP_Large ((8, 128) bf16 tiles),
+    into ``out``: one Q product's device µs warm (back to back) at B=2 and
+    cold (each after an L2 flush) at B=10, from the profiler's kernel
+    times, and as Python launches it back to back (paced: host clock over
+    50 calls, the wrapper included); the step's first group (A0·u, A0ᵀ·ν,
+    Q·u) the same ways (a checkout without the grouped launch runs the
+    three products as single launches); a chunk update at B=2, J=50 (three
+    in a row; its device ms by kernel, busy share and BSR launches); three
+    ``run_test`` calls at B=10, K=50 with Stage II (Parallel Time, Stage
+    II's seconds, BSR launches)."""
+    import numpy as np
+    import torch
+    from iadmm_tpu_torch.evaluation.driver import run_test
+    from iadmm_tpu_torch.kernels import sparse_matvec as tsm
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    ds, batches = sparse_snapshot_batches(SP_TEST_B)
+    buf = torch.ones(FLUSH_BYTES // 4, device=DEV)
+
+    def flush():
+        buf.sum()
+    grouped = hasattr(tsm, "bsr_matvec_group")
+    out["8 grouped launch"] = grouped
+    g = torch.Generator().manual_seed(15)
+    for B in (SP_TRAIN_B, SP_TEST_B):
+        scaled = batches[B][1]
+        Q = tsm.bsr_from_dense(scaled.Q, SP_TILE, torch.bfloat16, device=DEV)
+        A, AT = tsm.bsr_pair_from_dense(scaled.A0, SP_TILE, torch.bfloat16,
+                                        device=DEV)
+        u = torch.randn((B, SP_N), generator=g).to(DEV)
+        nu = torch.randn((B, SP_MI), generator=g).to(DEV)
+        mats, vs = [A, AT, Q], [u, nu, u]
+
+        def group():
+            if grouped:
+                return tsm.bsr_matvec_group(mats, vs)
+            return [tsm.bsr_matvec(M, v) for M, v in zip(mats, vs)]
+        warm = "warm" if B == SP_TRAIN_B else "cold"
+        kw = {} if B == SP_TRAIN_B else dict(flush=flush)
+        for name, fn in (("Q", lambda: tsm.bsr_matvec(Q, u)),
+                         ("group", group)):
+            out[f"8 {name} B={B} paced us"] = 1e3 * cuda_ms(fn, reps=50,
+                                                            warmup=5)
+            out[f"8 {name} B={B} {warm} device us"] = bsr_device_us(
+                fn, 50, **kw)
+        del Q, A, AT
+    cfg = sparse_cfg(data_size=SP_TRAIN_B + SP_TEST_B)
+    params = {k: v.cpu().numpy() for k, v in lstm_init(
+        torch.Generator().manual_seed(0), 2, SP_H, SP_K,
+        device=DEV).items()}
+    ids = np.arange(SP_TRAIN_B)
+    out["8 bsr chunk update"] = sparse_chunk_breakdown(cfg, ds, params, ids)
+    runs = []
+    for _ in range(3):
+        before = tsm.bsr_matvec.launches
+        r = run_test(cfg, ds, params, test_ids=np.arange(
+            SP_TRAIN_B, SP_TRAIN_B + SP_TEST_B), verbose=False, device=DEV)
+        runs.append(dict(
+            parallel_s_per_instance=r.parallel_time, total_s=r.total_time,
+            stage2_s=r.stage2.total_time if r.stage2 else None,
+            bsr_launches=tsm.bsr_matvec.launches - before))
+    out["8 bsr run_test"] = runs
+    del buf
+    torch.cuda.empty_cache()
+
+
+def time_bsr(path):
+    """Time this checkout's row 8 and BSR route alone (``time_rows_bsr``)
+    and write them to ``path`` as JSON.  Run in two checkouts, in turns,
+    to compare them on one card."""
+    import torch
+    from iadmm_tpu_torch.kernels import _build
+    _build.build_all()
+    out = dict(card=torch.cuda.get_device_name(0))
+    time_rows_bsr(out)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)
@@ -4143,10 +4432,11 @@ def main(argv=()) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if argv:
         modes = {"--snapshot": snapshot, "--time-rows": time_rows,
-                 "--time-rollout": time_rollout}
+                 "--time-rollout": time_rollout, "--time-bsr": time_bsr}
         if argv[0] not in modes or len(argv) != 2:
             print("usage: chip_smoke.py [--snapshot OUT | --compare A B | "
-                  "--time-rows OUT | --time-rollout OUT]", file=sys.stderr)
+                  "--time-rows OUT | --time-rollout OUT | --time-bsr OUT]",
+                  file=sys.stderr)
             return 2
         return modes[argv[0]](argv[1])
     say("setup", torch=torch.__version__, cuda=torch.version.cuda,

@@ -7,6 +7,7 @@ left).  ``chip_smoke.py`` computes the ported kernels' bounds from the
 inputs of its run with :func:`cell`, :func:`train_fwd`, :func:`train_bwd`,
 :func:`train_fwd_seg`, :func:`train_bwd_seg` (each at the bf16 or the
 float32 profile), :func:`stage2` (each solver), :func:`bsr_matvec`,
+:func:`bsr_matvec_group`,
 :func:`kkt_pass` (the KKT pass those kernels run, alone) and ``bound_ms``.
 
 A bound is the larger of two times: the bytes the work must move (each
@@ -183,16 +184,38 @@ def stored_tiles(vals) -> int:
     return int((vals != 0).any(-1).any(-1).sum())
 
 
+def _bsr_work(tiles, B, m, n, tm=8, tn=128, tile_bytes=2):
+    """(bytes, operations) of one BSR product: see :func:`bsr_matvec`."""
+    return (tiles * (tm * tn * tile_bytes + 4) + B * (n + m) * 4,
+            2.0 * tiles * tm * tn)
+
+
+def _bsr_bound(nbytes, ops, tile_bytes):
+    if tile_bytes == 2:
+        return bound_ms(nbytes, bf16_ops=ops)
+    return bound_ms(nbytes, f32_ops=ops)
+
+
 def bsr_matvec(tiles, B, m, n, tm=8, tn=128, tile_bytes=2):
     """Bound of one BSR matvec over a batch of B (m, n) matrices with
     ``tiles`` stored (tm, tn) tiles in all: the tiles (bf16 for
     ``tile_bytes=2``, else float32) and their int32 indices, the float32
     vector in and out; 2 operations per tile element at the tiles' rate."""
-    ops = 2.0 * tiles * tm * tn
-    nbytes = tiles * (tm * tn * tile_bytes + 4) + B * (n + m) * 4
-    if tile_bytes == 2:
-        return bound_ms(nbytes, bf16_ops=ops)
-    return bound_ms(nbytes, f32_ops=ops)
+    return _bsr_bound(*_bsr_work(tiles, B, m, n, tm, tn, tile_bytes),
+                      tile_bytes)
+
+
+def bsr_matvec_group(products):
+    """Bound of one grouped BSR launch: the sum of its products' bytes and
+    operations.  ``products``: each product's :func:`bsr_matvec`
+    arguments as a tuple ``(tiles, B, m, n, tm, tn, tile_bytes)``, all of
+    one tile dtype."""
+    if len({p[6] for p in products}) != 1:
+        raise ValueError("the products of a grouped launch share one tile "
+                         "dtype")
+    work = [_bsr_work(*p) for p in products]
+    return _bsr_bound(sum(b for b, _ in work), sum(o for _, o in work),
+                      products[0][6])
 
 
 def unported():

@@ -9,7 +9,9 @@ and evaluation functions below take either:
     JAX package's nse, each matvec a gather-based sum per row or column,
     differentiable with the JAX package's VJP;
   * :class:`BSRQPBatch` (``'bsr'``): Q, A0 and A0ᵀ as :class:`BSRMatrix`
-    tiles, each matvec the BSR kernel on the card (:func:`bsr_matvec_ad`).
+    tiles, each matvec the BSR kernel on the card (:func:`bsr_matvec_ad`);
+    the step's products whose vectors are ready together go as one grouped
+    launch (:meth:`BSRQPBatch.group`), forward and backward.
 
 The learned cell is the plain :func:`cells.lstm_apply` with float32 gates,
 as in the JAX package.
@@ -29,7 +31,7 @@ from ..solvers.step import _schedules, admm_update
 from ..types import IterState, QPBatch
 from .bcoo import BCOOMatrix, bcoo_from_dense, bcoo_matvec, bcoo_matvec_t
 from .sparse_matvec import BSRMatrix, bsr_from_dense, bsr_matvec_ad, \
-    bsr_pair_from_dense
+    bsr_matvec_group_ad, bsr_pair_from_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +94,16 @@ class BSRQPBatch:
     def ATv(self, v: torch.Tensor) -> torch.Tensor:
         return bsr_matvec_ad(self.A0T, self.A0, v)
 
+    def group(self, *products) -> Tuple[torch.Tensor, ...]:
+        """Up to three products in one launch, forward and backward:
+        ``products`` are ``(name, v)`` with name ``'Q'``, ``'A0'`` or
+        ``'A0T'``; returns each product, in order, as ``Qv``/``Av``/``ATv``
+        would."""
+        pairs = dict(Q=(self.Q, self.Q), A0=(self.A0, self.A0T),
+                     A0T=(self.A0T, self.A0))
+        return bsr_matvec_group_ad([pairs[nm] for nm, _ in products],
+                                   [v for _, v in products])
+
 
 def tile_dtype(matvec_mode: str) -> torch.dtype:
     """BSR tile storage of a precision profile: bf16 tiles pair with the
@@ -124,15 +136,39 @@ def from_dense(data: QPBatch, fmt: str = "bcoo", tile=(8, 128),
                       zl=data.zl, zu=data.zu, eq_mask=data.eq_mask)
 
 
+# On the BSR route each group of products below is one launch.  The order
+# within a group is autograd's: a vector given to two products of a group
+# (u, r1, x) gets their two gradient contributions in the group's order, and
+# that order (A0·v before Q·v) is the one in which autograd sums them when
+# each product is its own node, so the gradients are the ungrouped route's
+# bitwise.
+
+
+def kkt_residual_sparse(data, u, nu, x, y, z, sigma, rho_vec):
+    """(r1, r2) = Ã·xv − b̃ in blocks, with xv = (u, ν)."""
+    if isinstance(data, BSRQPBatch):
+        Au, ATnu, Qu = data.group(("A0", u), ("A0T", nu), ("Q", u))
+        r1 = Qu + sigma * u + ATnu - (sigma * x - data.p)
+        r2 = Au - nu / rho_vec - (z - y / rho_vec)
+        return r1, r2
+    r1 = data.Qv(u) + sigma * u + data.ATv(nu) - (sigma * x - data.p)
+    r2 = data.Av(u) - nu / rho_vec - (z - y / rho_vec)
+    return r1, r2
+
+
 def kkt_feature_sparse(data, xv, x, y, z, sigma, rho_vec) -> torch.Tensor:
     """g = Ãᵀ(Ã·xv − b̃) with every Q/A0 product a sparse matvec (the dense
     blockwise algebra is :func:`solvers.step.kkt_feature`)."""
     n = data.num_var
     u, nu = xv[:, :n], xv[:, n:]
-    r1 = data.Qv(u) + sigma * u + data.ATv(nu) - (sigma * x - data.p)
-    r2 = data.Av(u) - nu / rho_vec - (z - y / rho_vec)
-    g1 = data.Qv(r1) + sigma * r1 + data.ATv(r2)
-    g2 = data.Av(r1) - r2 / rho_vec
+    r1, r2 = kkt_residual_sparse(data, u, nu, x, y, z, sigma, rho_vec)
+    if isinstance(data, BSRQPBatch):
+        Ar1, ATr2, Qr1 = data.group(("A0", r1), ("A0T", r2), ("Q", r1))
+        g1 = Qr1 + sigma * r1 + ATr2
+        g2 = Ar1 - r2 / rho_vec
+    else:
+        g1 = data.Qv(r1) + sigma * r1 + data.ATv(r2)
+        g2 = data.Av(r1) - r2 / rho_vec
     return torch.cat([g1, g2], dim=-1)
 
 
@@ -153,6 +189,11 @@ def sparse_lstm_step(params, t, state: IterState, data,
 
 def primal_dual_residual_sparse(x, y, z, data):
     """(‖A0x − z‖₂, ‖Qx + p + A0ᵀy‖₂) per instance, sparse matvecs."""
+    if isinstance(data, BSRQPBatch):
+        Qx, ATy, Ax = data.group(("Q", x), ("A0T", y), ("A0", x))
+        pr = torch.linalg.vector_norm(Ax - z, dim=-1)
+        dr = torch.linalg.vector_norm(Qx + data.p + ATy, dim=-1)
+        return pr, dr
     pr = torch.linalg.vector_norm(data.Av(x) - z, dim=-1)
     dr = torch.linalg.vector_norm(data.Qv(x) + data.p + data.ATv(y), dim=-1)
     return pr, dr
@@ -219,10 +260,8 @@ def eval_rollout_sparse(params, state: IterState, data_sp,
         rho_vec, _ = _schedules(params, t, data_sp.eq_mask)
         old = st
         st = sparse_lstm_step(params, t, st, data_sp, sigma)
-        u, nu = st.xv[:, :n], st.xv[:, n:]
-        r1 = data_sp.Qv(u) + sigma * u + data_sp.ATv(nu) \
-            - (sigma * old.x - data_sp.p)
-        r2 = data_sp.Av(u) - nu / rho_vec - (old.z - old.y / rho_vec)
+        r1, r2 = kkt_residual_sparse(data_sp, st.xv[:, :n], st.xv[:, n:],
+                                     old.x, old.y, old.z, sigma, rho_vec)
         rows.append(metrics_row(st, ls_norm(r1, r2), data_orig, scaling,
                                 metrics_mode))
     return st, stack_traces(rows)

@@ -7,13 +7,15 @@ value tiles.  Pad tiles are zeros at column 0, so they add nothing.  The
 matvec reads only the stored tiles; for banded or block-structured
 constraint matrices that cuts the bytes by the tile-occupancy factor.
 
-The kernel (``csrc/bsr_matvec.cu``) runs one warp per output row; the
-vector's segment under each stored tile is staged once in shared memory for
-all rows of the block.  Its bound is the stored tiles' bytes (see the
-header of the source).  :func:`bsr_matvec` launches it on CUDA tensors and
-runs :func:`bsr_matvec_plain` on CPU tensors; :func:`bsr_matvec_ad` is
-differentiable in the vector, with the backward a second BSR matvec over
-the stored transpose.
+The kernel (``csrc/bsr_matvec.cu``) runs a warp per eight rows of a
+row-tile, each lane reading 16 bytes of a tile row at a time and the vector
+elements under them directly, with no shared memory and no barrier.
+Its bound is the stored tiles' bytes (see the header of the source).
+:func:`bsr_matvec` launches it on CUDA tensors and runs
+:func:`bsr_matvec_plain` on CPU tensors; :func:`bsr_matvec_group` runs up
+to three independent products in one launch.  :func:`bsr_matvec_ad` and
+:func:`bsr_matvec_group_ad` are differentiable in the vectors, with the
+backward the same launch over the stored transposes.
 
 Host tiling (:func:`bsr_tiles_host`, :func:`bsr_pad_k`) is numpy, as in the
 JAX package.
@@ -21,6 +23,7 @@ JAX package.
 
 from __future__ import annotations
 
+import array
 import dataclasses
 from typing import Tuple
 
@@ -33,7 +36,12 @@ from . import _build
 KERNEL_TM = (8, 128)   # row-tile heights the CUDA kernel takes
 KERNEL_TN = 128        # the column-tile width it takes
 _TILE_DTYPES = (torch.bfloat16, torch.float32)
-_ARGS = [_build.P] * 4 + [_build.I] * 7 + [_build.P]
+GROUP_MAX = 3           # products a launch takes
+# The C entry takes each product's 4 pointers and 6 sizes packed in one
+# int64 array: ctypes converts each argument on every call, and 33 of them
+# cost the host more than the launch.
+_ARGS = [_build.P, _build.I, _build.I, _build.P]
+_fn = None              # the bound C entry, looked up at the first launch
 
 
 def _round_up(x: int, m: int) -> int:
@@ -180,6 +188,12 @@ def bsr_matvec_plain(bsr: BSRMatrix, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, R * TM)[:, :m]
 
 
+def bsr_matvec_group_plain(mats, vs) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the grouped launch: ``bsr_matvec_plain(M_i, v_i)``
+    for each pair, in order."""
+    return tuple(bsr_matvec_plain(M, v) for M, v in zip(mats, vs))
+
+
 def check_kernel_shapes(bsr: BSRMatrix, v: torch.Tensor) -> None:
     """Raise unless the CUDA kernel takes this matrix and vector."""
     B, R, K, TM, TN = bsr.vals.shape
@@ -199,23 +213,28 @@ def check_kernel_shapes(bsr: BSRMatrix, v: torch.Tensor) -> None:
                          "device")
 
 
+def _operand(bsr: BSRMatrix, v: torch.Tensor):
+    """(kernel arguments of one product, its output, the tensors the
+    arguments point into): the checks, then the copies the kernel needs only
+    where the tensors do not qualify.  The caller holds the tensors until
+    the launch is queued: a copy freed before that could be handed to the
+    next allocation (another product's copy) and overwritten first."""
+    check_kernel_shapes(bsr, v)
+    B, R, K, TM, _ = bsr.vals.shape
+    m, n = bsr.shape
+    vals = _build.aligned(bsr.vals)
+    cols = bsr.cols if bsr.cols.is_contiguous() else bsr.cols.contiguous()
+    if v.dtype != torch.float32 or not v.is_contiguous():
+        v = v.to(torch.float32).contiguous()
+    out = torch.empty((B, m), dtype=torch.float32, device=v.device)
+    return ([vals.data_ptr(), cols.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, R, K, TM, m, n], out, (vals, cols, v))
+
+
 def bsr_matvec_cuda(bsr: BSRMatrix, v: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors; same contract as
     :func:`bsr_matvec_plain`."""
-    check_kernel_shapes(bsr, v)
-    B, R, K, TM, TN = bsr.vals.shape
-    m, n = bsr.shape
-    vals = _build.aligned(bsr.vals)
-    cols = bsr.cols.contiguous()
-    vf = v.to(torch.float32).contiguous()
-    out = torch.empty((B, m), dtype=torch.float32, device=v.device)
-    fn = _build.function("bsr_matvec", "iadmm_bsr_matvec", _ARGS)
-    code = fn(vals.data_ptr(), cols.data_ptr(), vf.data_ptr(),
-              out.data_ptr(), B, R, K, TM, m, n,
-              int(vals.dtype == torch.bfloat16), _build.stream_ptr(v.device))
-    _build.check(code, "iadmm_bsr_matvec")
-    bsr_matvec.launches += 1
-    return out
+    return bsr_matvec_group_cuda([bsr], [v])[0]
 
 
 def bsr_matvec(bsr: BSRMatrix, v: torch.Tensor) -> torch.Tensor:
@@ -226,18 +245,76 @@ def bsr_matvec(bsr: BSRMatrix, v: torch.Tensor) -> torch.Tensor:
     return bsr_matvec_plain(bsr, v)
 
 
-bsr_matvec.launches = 0  # kernel launches, counted by bsr_matvec_cuda
+bsr_matvec.launches = 0  # kernel launches (of one product or a group),
+# counted by bsr_matvec_group_cuda
 
 
-class _BSRMatvecAD(torch.autograd.Function):
+def bsr_matvec_group_cuda(mats, vs) -> Tuple[torch.Tensor, ...]:
+    """Up to ``GROUP_MAX`` independent products ``M_i·v_i`` (each with its
+    own shape and stored-tile count, all of one tile dtype) in one launch
+    of the kernel; each output bitwise the product launched alone."""
+    if not 1 <= len(mats) == len(vs) <= GROUP_MAX:
+        raise ValueError(f"a grouped BSR launch takes 1 to {GROUP_MAX} "
+                         f"(matrix, vector) pairs, not {len(mats)} and "
+                         f"{len(vs)}")
+    dtype = mats[0].vals.dtype
+    if any(M.vals.dtype != dtype for M in mats):
+        raise TypeError("the products of a grouped BSR launch must share "
+                        "one tile dtype")
+    if any(v.device != vs[0].device for v in vs):
+        raise ValueError("the products of a grouped BSR launch must be on "
+                         "one device")
+    args, outs, held = [], [], []
+    for M, v in zip(mats, vs):
+        a, out, h = _operand(M, v)
+        args += a
+        outs.append(out)
+        held.append(h)
+    global _fn
+    if _fn is None:
+        _fn = _build.function("bsr_matvec", "iadmm_bsr_matvec_group",
+                              _ARGS)
+    packed = array.array("q", args)
+    code = _fn(packed.buffer_info()[0], len(mats),
+               int(dtype == torch.bfloat16), _build.stream_ptr(vs[0].device))
+    del held
+    _build.check(code, "iadmm_bsr_matvec_group")
+    bsr_matvec.launches += 1
+    return tuple(outs)
+
+
+def bsr_matvec_group(mats, vs) -> Tuple[torch.Tensor, ...]:
+    """``(M_1·v_1, ...)`` for up to ``GROUP_MAX`` pairs: one launch of the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if vs[0].is_cuda:
+        return bsr_matvec_group_cuda(mats, vs)
+    return bsr_matvec_group_plain(mats, vs)
+
+
+class _BSRGroupAD(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, M, MT):
-        ctx.MT = MT
-        return bsr_matvec(M, v)
+    def forward(ctx, pairs, *vs):
+        ctx.transposes = tuple(MT for _, MT in pairs)
+        return bsr_matvec_group(tuple(M for M, _ in pairs), vs)
 
     @staticmethod
-    def backward(ctx, g):
-        return bsr_matvec(ctx.MT, g), None, None
+    def backward(ctx, *gs):
+        need = [i for i, ok in enumerate(ctx.needs_input_grad[1:]) if ok]
+        dv = bsr_matvec_group([ctx.transposes[i] for i in need],
+                              [gs[i] for i in need])
+        grads = [None] * len(gs)
+        for i, d in zip(need, dv):
+            grads[i] = d
+        return (None, *grads)
+
+
+def bsr_matvec_group_ad(pairs, vs) -> Tuple[torch.Tensor, ...]:
+    """Differentiable (in each vector) grouped BSR matvec: ``(M_i·v_i)``
+    for ``pairs`` of ``(M_i, M_iᵀ)``, one launch; the VJP is one launch of
+    ``M_iᵀ·ȳ_i`` over the products whose vector needs a gradient.  A
+    vector given twice gets its two contributions from autograd in the
+    order of ``pairs``."""
+    return _BSRGroupAD.apply(tuple(pairs), *vs)
 
 
 def bsr_matvec_ad(M: BSRMatrix, MT: BSRMatrix, v: torch.Tensor
@@ -245,4 +322,4 @@ def bsr_matvec_ad(M: BSRMatrix, MT: BSRMatrix, v: torch.Tensor
     """Differentiable (in ``v``) BSR matvec: y = M·v, with the VJP
     dv = Mᵀ·ȳ a second BSR matvec over the stored transpose ``MT``.  The
     matrices are problem data and get no gradient."""
-    return _BSRMatvecAD.apply(v, M, MT)
+    return bsr_matvec_group_ad([(M, MT)], [v])[0]

@@ -40,6 +40,26 @@ def test_bsr_bound_counts_the_stored_tiles(nb, w, tm, tn):
     assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
 
 
+def test_bsr_group_bound_sums_its_products():
+    """A grouped launch moves its products' tiles, indices and vectors and
+    does their operations: the bound of the sums, not the sum of the
+    bounds (bytes bind each product here, so the two agree)."""
+    Q = (1024, 2, 4096, 4096, 8, 128, 2)        # K = 1 .. 2 stored tiles
+    A = (512, 2, 1024, 4096, 8, 128, 2)
+    AT = (512, 2, 4096, 1024, 8, 128, 2)
+    ms, by = bounds.bsr_matvec_group([A, AT, Q])
+    parts = [bounds.bsr_matvec(*p) for p in (A, AT, Q)]
+    assert by == "bytes" and all(b == "bytes" for _, b in parts)
+    assert ms == pytest.approx(sum(t for t, _ in parts))
+    nbytes = sum(t * (8 * 128 * 2 + 4) + 2 * (n + m) * 4
+                 for t, _, m, n, *_ in (A, AT, Q))
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    f32 = (1024, 2, 4096, 4096, 8, 128, 4)
+    assert bounds.bsr_matvec_group([f32]) == bounds.bsr_matvec(*f32)
+    with pytest.raises(ValueError, match="one tile dtype"):
+        bounds.bsr_matvec_group([Q, f32])
+
+
 def test_segment_pair_bounds_at_the_flagship():
     """The segment forward's bound is the stream forward's (one gate GEMM
     a step: J·2·B·S·h·4h = 2.05 TFLOP) with checkpoints for streams; the

@@ -340,7 +340,9 @@ def test_stage2_condensed_n_limit(no_tf32, solver):
 def test_bsr_matvec_matches_plain(dev, dtype, tm, m, n):
     """Forward and backward to 1e-5 (bf16 tiles) or 1e-6 (float32 tiles)
     of max|ref|; two calls bitwise equal.  Covers ragged m and n and K=1
-    (the last case)."""
+    (the last case).  The grouped launch (M·v, Mᵀ·w, M·v again): one
+    launch, each output bitwise the single-product kernel's, held to the
+    plain version; its backward one launch."""
     from iadmm_tpu_torch.kernels import sparse_matvec as tsm
     g = torch.Generator().manual_seed(m + n)
     M = torch.randn((3, m, n), generator=g)
@@ -361,6 +363,26 @@ def test_bsr_matvec_matches_plain(dev, dtype, tm, m, n):
     torch.testing.assert_close(v.grad, gref, rtol=0,
                                atol=tol * float(gref.abs().max()))
     assert torch.equal(tsm.bsr_matvec(Mb, v.detach()), out.detach())
+    # slices of one tensor, as the step takes u and ν from xv: the wrapper
+    # copies each before the one launch
+    xv = torch.randn((3, 2 * n + m), generator=g).to(dev)
+    v1, w1, v2 = xv[:, :n], xv[:, n:n + m], xv[:, n + m:]
+    before = tsm.bsr_matvec.launches
+    outs = tsm.bsr_matvec_group([Mb, MTb, Mb], [v1, w1, v2])
+    assert tsm.bsr_matvec.launches == before + 1
+    for o, (M, x) in zip(outs, [(Mb, v1), (MTb, w1), (Mb, v2)]):
+        assert torch.equal(o, tsm.bsr_matvec_cuda(M, x))
+        ref = tsm.bsr_matvec_plain(M, x)
+        torch.testing.assert_close(o, ref, rtol=0,
+                                   atol=tol * float(ref.abs().max()))
+    vg = v.detach().clone().requires_grad_(True)
+    wg = w.clone().requires_grad_(True)
+    before = tsm.bsr_matvec.launches
+    a, b = tsm.bsr_matvec_group_ad([(Mb, MTb), (MTb, Mb)], [vg, wg])
+    (a * w).sum().add((b * v2).sum()).backward()
+    assert tsm.bsr_matvec.launches == before + 2
+    assert torch.equal(vg.grad, tsm.bsr_matvec_cuda(MTb, w))
+    assert torch.equal(wg.grad, tsm.bsr_matvec_cuda(Mb, v2))
 
 
 def _train_inputs(dev, B=2, n=20, mi=12, me=10, h=24, K=8, seed=5):
