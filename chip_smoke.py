@@ -222,8 +222,10 @@ surface:
       serving batch; one ``make_solver`` call (fused rollout, Stage II
       'fused') under ``utils.trace`` with a ``StepTimer`` writes a profile
       to ``chiprun_out/chip_smoke/trace/`` that names the rollout's cell
-      kernel and the five ``solve/<stage>`` spans, and its phases sum to
-      at most its wall time; ``fused_stage2(solver='cg')`` from two host
+      kernel, the five ``solve/<stage>`` spans and Stage II's
+      ``stage2/factor`` and ``stage2/polish``, its stages' phases sum to
+      at most its wall time and Stage II's two to at most its
+      ``stage2``; ``fused_stage2(solver='cg')`` from two host
       threads on two streams, five calls each on two B=8 batches, each
       result bitwise the same call from one thread.
 
@@ -4799,8 +4801,9 @@ def phase_utilities(params, report):
     matvec_mode='bf16')`` over K_CHECK steps of the serving batch; one
     ``make_solver`` call (the fused rollout, Stage II 'fused') under
     ``trace`` with a ``StepTimer`` writes a profile under TRACE_DIR that
-    names the rollout kernel and every stage's ``annotate`` span, and the
-    timer's phases sum to no more than the call's wall time; the 'cg'
+    names the rollout kernel, every stage's ``solve/<stage>`` span and
+    Stage II's two, and the timer's stage phases sum to no more than the
+    call's wall time; the 'cg'
     polish under two host threads is bitwise its single-thread results.
     Returns the main path's launches (best_lstm_step's rollout and the
     traced solve)."""
@@ -4857,16 +4860,22 @@ def phase_utilities(params, report):
                      "kernel's step")
     trace_file, names = trace_events(TRACE_DIR)
     stages = ("scaling", "rollout", "unscale", "stage2", "residuals")
-    missing = [s for s in stages if f"solve/{s}" not in names]
+    sub = ("stage2/factor", "stage2/polish")   # nested in stage2
+    missing = [s for s in [f"solve/{s}" for s in stages] + list(sub)
+               if s not in names]
     kernels = sorted(k for k in names if "rollout_cell_kernel" in k)
     if missing or not kernels:
         fails.append(f"the profile lacks spans {missing} or the rollout's "
                      f"cell kernel ({len(kernels)} names)")
     summary = timer.summary()
-    phases_s = sum(v["total"] for v in summary.values())
-    if set(summary) != set(stages) or not phases_s <= wall.elapsed:
+    phases_s = sum(summary[s]["total"] for s in stages if s in summary)
+    sub_s = sum(summary[s]["total"] for s in sub if s in summary)
+    if set(summary) != set(stages) | set(sub) \
+            or not phases_s <= wall.elapsed \
+            or not sub_s <= summary["stage2"]["total"]:
         fails.append(f"StepTimer phases {sorted(summary)} sum to "
-                     f"{phases_s:.6f}s, the call took {wall.elapsed:.6f}s")
+                     f"{phases_s:.6f}s (Stage II's parts {sub_s:.6f}s), the "
+                     f"call took {wall.elapsed:.6f}s")
     if not torch.isfinite(res.x).all():
         fails.append("the traced solve is not finite")
     cg = cg_threads(params)
@@ -4876,7 +4885,8 @@ def phase_utilities(params, report):
                                    steps=K_CHECK),
                trace=dict(file=os.path.relpath(
                    os.path.join(TRACE_DIR, trace_file), ROOT),
-                   spans=[s for s in stages if f"solve/{s}" in names],
+                   spans=[s for s in [f"solve/{s}" for s in stages]
+                          + list(sub) if s in names],
                    rollout_kernel_names=kernels[:3]),
                step_timer=dict(phases=summary, phases_s=phases_s,
                                wall_s=wall.elapsed),

@@ -20,7 +20,7 @@ from .solvers.step import (get_cell, make_lstm_step, _schedules,
 from .solvers.rollouts import rollout, unscale_state
 from .solvers import exact as exact_mod
 from .evaluation import metrics
-from .utils.profiling import StepTimer, annotate
+from .utils.profiling import StepTimer, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +67,16 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
 
     Each stage of a solve (``scaling``, ``rollout``, ``unscale``,
     ``stage2``, ``residuals``) is a :func:`~iadmm_tpu_torch.utils.
-    profiling.annotate` span named ``solve/<stage>`` in a profile; with a
-    ``timer`` (:class:`~iadmm_tpu_torch.utils.profiling.StepTimer`) each
-    is also a timed phase, ended by a fetch barrier of its result (one
-    device synchronisation a stage).
+    profiling.span` named ``solve/<stage>``; inside ``solve/stage2`` every
+    route opens ``stage2/factor`` around forming its operand (Ã⁻¹, M⁻¹,
+    the Jacobi diagonal or the LU; the matrix-free ``'cg'`` has none) and
+    ``stage2/polish`` around its N steps.  ``solve`` makes ``timer`` (a
+    :class:`~iadmm_tpu_torch.utils.profiling.StepTimer`) the active one
+    for the call, so each span is also a timed phase, keyed ``<stage>``
+    and ``stage2/factor``, ``stage2/polish``, ended by a fetch barrier of
+    its result (one device synchronisation a span).  Under a profiler
+    each span ends with a device synchronisation; with neither, the spans
+    do nothing.
     """
     if stage2_impl not in _STAGE2_IMPLS:
         raise ValueError(f"unknown stage2_impl {stage2_impl!r}")
@@ -85,33 +91,29 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
         step_fn = get_cell(model_name).step
     hc_dtype = torch.bfloat16 if gate_dtype == "bfloat16" else torch.float32
 
-    @contextlib.contextmanager
-    def stage(name):
-        with annotate("solve/" + name):
-            if timer is None:
-                yield {}
-            else:
-                with timer.phase(name) as box:
-                    yield box
-
     @torch.no_grad()
     def solve(data: QPBatch) -> SolveResult:
-        with stage("scaling") as box:
+        with timer.active() if timer is not None \
+                else contextlib.nullcontext():
+            return _solve(data)
+
+    def _solve(data: QPBatch) -> SolveResult:
+        with span("solve/scaling", key="scaling") as box:
             scaled, sc = scale_batch(data, iters=scaling_iters) \
                 if scaling_iters else (data, None)
             box["result"] = scaled.p
-        with stage("rollout") as box:
+        with span("solve/rollout", key="rollout") as box:
             st = _rollout(scaled, data)
             box["result"] = st.x
         if sc is not None:
-            with stage("unscale") as box:
+            with span("solve/unscale", key="unscale") as box:
                 st = unscale_state(st, sc)
                 box["result"] = st.x
         if feas_rest_num:
-            with stage("stage2") as box:
+            with span("solve/stage2", key="stage2") as box:
                 st = _stage2(st, data)
                 box["result"] = st.x
-        with stage("residuals") as box:
+        with span("solve/residuals", key="residuals") as box:
             pr, dr = metrics.primal_dual_residual(
                 st.x, st.y, st.z, data.Q, data.p, data.A0, "default")
             obj = metrics.obj_fn(st.x, data.Q, data.p, "default")

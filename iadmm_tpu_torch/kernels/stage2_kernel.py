@@ -22,7 +22,9 @@ otherwise), applies the z-relaxed update with α = 1.6 and records the
 primal/dual residuals.  On CUDA data every polish step is one call into
 ``csrc/stage2.cu`` (all float32 FMA; bound by bytes for 'kkt', by
 operations for the other two: see ``bounds.stage2``); on CPU data the
-plain twins below run the same steps.
+plain twins below run the same steps.  :func:`fused_stage2` forms the
+operand inside the span ``stage2/factor`` and runs the N steps inside
+``stage2/polish`` (:func:`~iadmm_tpu_torch.utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..solvers.cg import (batched_cg, condensed_matvec, condensed_rhs,
 from ..solvers.exact import ALPHA_STAGE2
 from ..solvers.step import admm_update
 from ..types import IterState, QPBatch
+from ..utils.profiling import span
 from . import _build
 
 
@@ -261,13 +264,18 @@ _COUNT_LOCK = threading.Lock()   # callers may polish from several threads
 
 def _run_steps(fn, what, counter, N, head, tensors, tail):
     """The N polish steps, one call of ``fn`` a step: (i, N, *head,
-    pointers of ``tensors``, *tail); each counts once in ``counter``."""
+    pointers of ``tensors``, *tail); each step launched counts once in
+    ``counter``, added under the lock once a call."""
     ptrs = [t.data_ptr() for t in tensors]
-    for i in range(N):
-        _build.check(fn(i, N, *head, *ptrs, *tail), what)
+    done = 0
+    try:
+        for i in range(N):
+            _build.check(fn(i, N, *head, *ptrs, *tail), what)
+            done += 1
+    finally:
         with _COUNT_LOCK:
             setattr(fused_stage2, counter,
-                    getattr(fused_stage2, counter) + 1)
+                    getattr(fused_stage2, counter) + done)
 
 
 def stage2_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
@@ -373,19 +381,23 @@ def fused_stage2(state: IterState, data: QPBatch, rho_vec: torch.Tensor,
     cuda = data.p.is_cuda
     kw = dict(num_iters=num_iters, sigma=sigma)
     if solver == "kkt":
-        run = stage2_cuda if cuda else stage2_plain
-        out = run(state, data, rho, kkt_inverse(data, rho, sigma),
-                  refine=refine, **kw)
+        form, run = kkt_inverse, (stage2_cuda if cuda else stage2_plain)
+        kw.update(refine=refine)
     elif solver == "direct":
+        form = direct_inverse
         run = stage2_direct_cuda if cuda else stage2_direct_plain
-        out = run(state, data, rho, direct_inverse(data, rho, sigma),
-                  refine=refine, **kw)
+        kw.update(refine=refine)
     else:
-        run = stage2_cg_cuda if cuda else stage2_cg_plain
-        out = run(state, data, rho, cg_diag(data, rho, sigma),
-                  cg_iters=cg_iters, tol=tol, **kw)
-    x, y, z, xt, pr, dr = out[:6]
-    return finish_state(state, data, rho, x, y, z, xt), pr, dr
+        form, run = cg_diag, (stage2_cg_cuda if cuda else stage2_cg_plain)
+        kw.update(cg_iters=cg_iters, tol=tol)
+    with span("stage2/factor") as box:
+        operand = form(data, rho, sigma)
+        box["result"] = operand
+    with span("stage2/polish") as box:
+        x, y, z, xt, pr, dr = run(state, data, rho, operand, **kw)[:6]
+        state = finish_state(state, data, rho, x, y, z, xt)
+        box["result"] = state.x
+    return state, pr, dr
 
 
 # Polish steps launched, one a call into csrc/stage2.cu, by solver

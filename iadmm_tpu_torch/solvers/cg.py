@@ -24,6 +24,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..types import IterState, QPBatch
+from ..utils.profiling import span
 from .exact import ALPHA_STAGE2
 from .step import admm_update, bmv, bmv_t
 
@@ -109,8 +110,11 @@ def feasibility_restoration_cg(state: IterState, data: QPBatch, sigma,
                                cg_iters: int = 100,
                                alpha: float = ALPHA_STAGE2) -> IterState:
     """Stage-II polish loop, matrix-free; CG warm-starts from the previous
-    x̃ carried in xv."""
-    for _ in range(num_iters):
-        state = exact_step_cg(rho_vec, state, data, sigma, cg_iters,
-                              alpha=alpha)
+    x̃ carried in xv.  Nothing is factorised: the loop is the span
+    ``stage2/polish`` alone."""
+    with span("stage2/polish") as box:
+        for _ in range(num_iters):
+            state = exact_step_cg(rho_vec, state, data, sigma, cg_iters,
+                                  alpha=alpha)
+        box["result"] = state.x
     return state

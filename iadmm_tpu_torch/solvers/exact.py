@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from ..types import IterState, QPBatch
+from ..utils.profiling import span
 from .step import admm_update, kkt_rhs
 
 ALPHA_STAGE2 = 1.6
@@ -50,8 +51,13 @@ def exact_step(lu, piv, rho_vec, state: IterState, data: QPBatch, sigma,
 def feasibility_restoration(state: IterState, data: QPBatch, sigma,
                             rho_vec: torch.Tensor, num_iters: int,
                             alpha: float = ALPHA_STAGE2) -> IterState:
-    """``num_iters`` exact polish steps with a single factorisation."""
-    lu, piv = lu_factorize(data, sigma, rho_vec)
-    for _ in range(num_iters):
-        state = exact_step(lu, piv, rho_vec, state, data, sigma, alpha)
+    """``num_iters`` exact polish steps with a single factorisation, in
+    the spans ``stage2/factor`` and ``stage2/polish``."""
+    with span("stage2/factor") as box:
+        lu, piv = lu_factorize(data, sigma, rho_vec)
+        box["result"] = lu
+    with span("stage2/polish") as box:
+        for _ in range(num_iters):
+            state = exact_step(lu, piv, rho_vec, state, data, sigma, alpha)
+        box["result"] = state.x
     return state

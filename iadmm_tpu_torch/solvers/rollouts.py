@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..evaluation import metrics
 from ..types import IterState, QPBatch, ScalingState
+from ..utils.profiling import span
 from . import exact as exact_mod
 from .step import _schedules, kkt_residual
 
@@ -146,15 +147,21 @@ def eval_stage2(state: IterState, data_scaled: QPBatch, data_orig: QPBatch,
     """Stage-II polish (exact LU steps, one factorisation) with
     per-iteration traces.  Stage II runs on the unscaled data with the last
     learned ρ: pass ``data_scaled = data_orig``, a state mapped back with
-    :func:`unscale_state`, and ``scaling=None``."""
-    lu, piv = exact_mod.lu_factorize(data_scaled, sigma, rho_vec)
+    :func:`unscale_state`, and ``scaling=None``.  The factorisation is the
+    span ``stage2/factor``, the steps with their traces ``stage2/polish``."""
+    with span("stage2/factor") as box:
+        lu, piv = exact_mod.lu_factorize(data_scaled, sigma, rho_vec)
+        box["result"] = lu
     rows = []
     st = state
-    for _ in range(num_iters):
-        old = st
-        st = exact_mod.exact_step(lu, piv, rho_vec, st, data_scaled, sigma)
-        rows.append(_trace_row(st, old, data_scaled, data_orig, scaling,
-                               sigma, rho_vec, metrics_mode))
+    with span("stage2/polish") as box:
+        for _ in range(num_iters):
+            old = st
+            st = exact_mod.exact_step(lu, piv, rho_vec, st, data_scaled,
+                                      sigma)
+            rows.append(_trace_row(st, old, data_scaled, data_orig, scaling,
+                                   sigma, rho_vec, metrics_mode))
+        box["result"] = st.x
     return st, stack_traces(rows)
 
 

@@ -79,7 +79,7 @@ from ..solvers.step import (check_schedule_len, get_cell, make_cell_step,
                             make_lstm_step)
 from ..types import IterState, init_state
 from ..utils.logging import RunLog
-from ..utils.profiling import start_compile_watchdog
+from ..utils.profiling import span, start_compile_watchdog
 from . import checkpoint as ckpt
 from .early_stopping import EarlyStopping
 from .recovery import restore_snapshot, snapshot
@@ -198,7 +198,13 @@ def make_chunk_body(step_fn, optimizer: ClippedAdam, outer_T: int,
     ``loss_fn(params, state, data, t0) -> (loss, state')`` replaces the
     chunk loss over ``step_fn`` (the fused training kernels; under a mesh
     it returns the mean over 'data', as the step route's does with
-    ``mesh``)."""
+    ``mesh``).
+
+    An update opens the spans ``chunk/forward`` (the ``loss_fn`` call) and
+    ``chunk/backward`` (``loss.backward()``) (:func:`~iadmm_tpu_torch.
+    utils.profiling.span`): under a profiler each ends with a device
+    synchronisation, under an active ``StepTimer`` each is a phase ended by
+    a fetch barrier, and otherwise they do nothing."""
     if loss_fn is None:
         def loss_fn(p, state, data, t0):
             loss, final = chunk_loss(step_fn, p, state, data, sigma,
@@ -207,8 +213,13 @@ def make_chunk_body(step_fn, optimizer: ClippedAdam, outer_T: int,
 
     def chunk_body(params, state: IterState, data, t0):
         optimizer.zero_grad()
-        loss, new_state = loss_fn(params, _detach(state), data, t0)
-        loss.backward()
+        with span("chunk/forward") as box:
+            loss, new_state = loss_fn(params, _detach(state), data, t0)
+            box["result"] = loss
+        with span("chunk/backward") as box:
+            loss.backward()
+            # a copy of any tensor waits for the backward queued before it
+            box["result"] = loss
         optimizer.step()
         return _detach(new_state), loss.detach()
 

@@ -5,6 +5,9 @@ Counterpart of ``iadmm_tpu/utils/profiling.py``:
   * :func:`trace` — a ``torch.profiler`` region (CPU and CUDA activities)
     that writes a Chrome trace under its directory;
   * :func:`annotate` — a named span in that trace;
+  * :func:`span` — a named span of the program where the work happens:
+    in the trace while a profiler records, a phase of the active
+    :class:`StepTimer` while one is active, nothing otherwise;
   * :func:`enable_nan_checks` — autograd's anomaly detection;
   * :func:`fetch_barrier` — a one-element device-to-host copy of every
     CUDA leaf of a tree, a completion barrier;
@@ -18,10 +21,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import os
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -57,8 +61,62 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    """A named span in the :func:`trace` timeline (a context manager)."""
+    """A named span in the :func:`trace` timeline (a context manager): the
+    bare span, with no wait for the device and no timer."""
     return torch.profiler.record_function(name)
+
+
+# The StepTimer that spans time, set by StepTimer.active() (per thread and
+# per task, so nothing is threaded through the call chain)
+_ACTIVE_TIMER: contextvars.ContextVar = contextvars.ContextVar(
+    "iadmm_active_step_timer", default=None)
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _DropBox(dict):
+    """The box of a span that records nothing: what the block sets in it is
+    dropped, so the shared box holds no tensor."""
+    __slots__ = ()
+
+    def __setitem__(self, key, value):
+        pass
+
+
+_OFF = contextlib.nullcontext(_DropBox())
+
+
+def span(name: str, key: Optional[str] = None):
+    """A named span of the program (a context manager yielding ``box``, as
+    :meth:`StepTimer.phase` does: the block may set ``box['result']``).
+
+    - While a profiler records (:func:`trace`, ``torch.profiler``), it is
+      :func:`annotate` ``(name)``, and it waits for the device before it
+      ends (``torch.cuda.synchronize``), so that a device operation is
+      attributed to the span in which it starts.  Nested spans nest in the
+      trace.
+    - While a :class:`StepTimer` is active (:meth:`StepTimer.active`), it
+      is also a phase of that timer under ``key`` (default ``name``),
+      ended by :func:`fetch_barrier` of ``box['result']``.  Names are
+      paths (``stage2/factor`` inside ``solve/stage2``), so the phases of
+      nested spans keep apart.
+    - Otherwise it does nothing: no record, no clock read, no wait, no
+      allocation."""
+    timer = _ACTIVE_TIMER.get()
+    if timer is None and not _profiling():
+        return _OFF
+    return _recorded(name, key or name, timer)
+
+
+@contextlib.contextmanager
+def _recorded(name: str, key: str, timer):
+    profiled = _profiling()
+    with annotate(name) if profiled else contextlib.nullcontext():
+        # the phase first, so that it times what StepTimer.phase times
+        with timer.phase(key) if timer is not None \
+                else contextlib.nullcontext({}) as box:
+            yield box
+        if profiled and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
 
 
 def enable_nan_checks(on: bool = True) -> None:
@@ -126,10 +184,20 @@ class StepTimer:
     timer.summary() -> {'scaling': {'total': s, 'count': k, 'mean': s/k}}
 
     The block may instead set ``box['result']`` on the dict it is given.
+    ``with timer.active(): ...`` makes the timer the one that every
+    :func:`span` inside the block times.
     """
 
     def __init__(self):
         self._acc: Dict[str, list] = collections.defaultdict(list)
+
+    @contextlib.contextmanager
+    def active(self):
+        token = _ACTIVE_TIMER.set(self)
+        try:
+            yield self
+        finally:
+            _ACTIVE_TIMER.reset(token)
 
     @contextlib.contextmanager
     def phase(self, name: str, result_tree=None):

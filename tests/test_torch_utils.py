@@ -170,14 +170,154 @@ def test_make_solver_stages_are_spans_and_timed_phases(tmp_path):
     for f in ("x", "y", "z", "primal_res", "dual_res", "obj"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     stages = {"scaling", "rollout", "unscale", "stage2", "residuals"}
+    sub = {"stage2/factor", "stage2/polish"}   # nested in stage2
     summary = timer.summary()
-    assert set(summary) == stages
+    assert set(summary) == stages | sub
     assert all(v["count"] == 1 for v in summary.values())
-    assert sum(v["total"] for v in summary.values()) <= wall.elapsed
+    assert sum(summary[s]["total"] for s in stages) <= wall.elapsed
     (trace_file,) = tmp_path.glob("trace_*.json")
     names = {e.get("name") for e in
              json.loads(trace_file.read_text())["traceEvents"]}
-    assert {f"solve/{s}" for s in stages} <= names
+    assert {f"solve/{s}" for s in stages} | sub <= names
+
+
+# ------------------------------------------------------------ spans
+
+def _span_events(trace_dir):
+    """{name: [(start, end), ...]} of the user spans of the one trace."""
+    (trace_file,) = trace_dir.glob("trace_*.json")
+    out = {}
+    for e in json.loads(trace_file.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            out.setdefault(e["name"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+    return out
+
+
+def _inside(inner, outer):
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+def test_span_off_neither_syncs_nor_reads_a_clock(monkeypatch):
+    """With no profiler and no active timer a span records nothing, reads
+    no clock, waits for nothing and drops what the block sets."""
+    def boom(*a, **k):
+        raise AssertionError("a span with tracing off did work")
+
+    class NoClock:
+        perf_counter = staticmethod(boom)
+
+    monkeypatch.setattr(tprof, "time", NoClock)
+    monkeypatch.setattr(tprof, "fetch_barrier", boom)
+    monkeypatch.setattr(tprof, "annotate", boom)
+    monkeypatch.setattr(torch.cuda, "synchronize", boom)
+    first = tprof.span("a")
+    with first as box:
+        with tprof.span("a/b", key="b") as inner:
+            inner["result"] = torch.ones(2)
+        box["result"] = torch.ones(2)
+    assert "result" not in box and "result" not in inner
+    assert tprof.span("c") is first   # nothing made a call
+
+
+def test_span_names_nest_under_trace(tmp_path):
+    with tprof.trace(str(tmp_path)):
+        with tprof.span("outer") as box:
+            with tprof.span("outer/inner"):
+                (torch.ones(32, 32) @ torch.ones(32, 32)).sum()
+            box["result"] = torch.ones(1)
+    spans = _span_events(tmp_path)
+    (outer,), (inner,) = spans["outer"], spans["outer/inner"]
+    assert _inside(inner, outer)
+
+
+def test_span_phases_under_active_timer():
+    """Spans are phases of the active timer under their keys, nested ones
+    under their path names; outside ``active()`` nothing is timed."""
+    timer = tprof.StepTimer()
+    with tprof.span("before"):
+        pass
+    with timer.active():
+        with tprof.span("solve/outer", key="outer") as box:
+            with tprof.span("outer/inner") as inner:
+                time.sleep(0.01)
+                inner["result"] = torch.ones(2)
+            box["result"] = torch.ones(2)
+    with tprof.span("after"):
+        pass
+    summary = timer.summary()
+    assert set(summary) == {"outer", "outer/inner"}
+    assert all(v["count"] == 1 for v in summary.values())
+    assert 0.01 <= summary["outer/inner"]["total"] <= \
+        summary["outer"]["total"]
+
+
+def _solve_data():
+    ds = jgen.generate("QP", num_var=12, num_ineq=6, num_eq=6, data_size=3,
+                       seed=4)
+    from iadmm_tpu_torch.problems import to_qp_batch
+    data = to_qp_batch(ds, device="cpu")
+    p = {k: torch.as_tensor(np.asarray(v))
+         for k, v in jax_lstm_params(5, 8, 4).items()}
+    return data, p
+
+
+@pytest.mark.parametrize("impl", ["lu", "fused", "fused-direct", "cg"])
+def test_stage2_routes_open_factor_and_polish_spans(impl):
+    """Every Stage II route of ``make_solver`` times ``stage2/polish``, and
+    each route that forms an operand ``stage2/factor`` (the matrix-free
+    'cg' forms none); each sub-phase lies within ``stage2``, and the
+    result is bitwise the untimed solve's."""
+    data, p = _solve_data()
+    kw = dict(hidden_dim=8, num_iters=4, feas_rest_num=2, stage2_impl=impl)
+    timer = tprof.StepTimer()
+    got = it.make_solver(p, timer=timer, **kw)(data)
+    ref = it.make_solver(p, **kw)(data)
+    for f in ("x", "y", "z", "primal_res", "dual_res", "obj"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    summary = timer.summary()
+    sub = {"stage2/polish"} | ({"stage2/factor"} if impl != "cg" else set())
+    assert {k for k in summary if k.startswith("stage2/")} == sub
+    assert all(summary[k]["count"] == 1 for k in sub)
+    assert sum(summary[k]["total"] for k in sub) <= \
+        summary["stage2"]["total"]
+
+
+def test_chunk_body_spans_nest_and_leave_the_update_bitwise(tmp_path):
+    """Under ``trace`` one update opens ``chunk/forward`` and then
+    ``chunk/backward``, once each, and its parameters, state and loss are
+    bitwise those of the same update untraced."""
+    from iadmm_tpu_torch.problems import to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.step import lstm_step
+    from iadmm_tpu_torch.train import harness
+    from iadmm_tpu_torch.types import init_state
+    ds = jgen.generate("QP", num_var=12, num_ineq=6, num_eq=6, data_size=2,
+                       seed=3)
+    data = scale_batch(to_qp_batch(ds, dtype=torch.float32,
+                                   device="cpu"))[0]
+    base = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+            for k, v in jax_lstm_params(2, 8, 4).items()}
+
+    def update():
+        params = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+        body = harness.make_chunk_body(
+            lstm_step, harness.make_optimizer(params, 1e-3), 4, 2, 6e-6)
+        st, loss = body(params, init_state(2, 12, 12, 8, device="cpu"),
+                        data, 0)
+        return params, st, loss
+
+    with tprof.trace(str(tmp_path)):
+        got = update()
+    ref = update()
+    for k in base:
+        assert torch.equal(got[0][k], ref[0][k]), k
+    assert torch.equal(got[1].x, ref[1].x) and torch.equal(got[2], ref[2])
+    spans = _span_events(tmp_path)
+    assert {k for k in spans if k.startswith("chunk/")} == \
+        {"chunk/forward", "chunk/backward"}
+    (fwd,), (bwd,) = spans["chunk/forward"], spans["chunk/backward"]
+    assert fwd[0] <= fwd[1] <= bwd[0] <= bwd[1]
 
 
 # ------------------------------------------------------------ best step
