@@ -37,8 +37,12 @@ surface:
       the two ragged shapes that ``--compare`` holds (odd band counts: the
       flagship's 125 and S=1037's 17 leave the last 2-CTA cluster a band
       past the end);
-  (c) the Stage-II 'kkt' kernel against its plain version (B=8, N=20),
-      timed beside N x torch.bmm of Ã⁻¹ by b̃;
+  (c) Ã⁻¹ from the 'kkt' operand's kernel (csrc/kkt_inverse.cu, B=8,
+      S=2000) against float64 torch.linalg.inv and its plain version, two
+      calls bitwise equal, timed beside its bound, the plain version and
+      torch.linalg.inv with its transposing copy; the Stage-II 'kkt' kernel
+      against its plain version (B=8, N=20), timed beside N x torch.bmm of
+      Ã⁻¹ by b̃;
   (d) serving: ``make_solver`` with the fast profile answers 3 requests of
       B=8 fresh instances (rollout_impl='fused', Stage II 'fused');
   (e) the same with rollout_impl='step', whose cell goes through the cell
@@ -888,10 +892,9 @@ def phase_stage2(params, data, sc, xyz, report):
                    H=x.new_zeros((B, 1, 1)), C=x.new_zeros((B, 1, 1)))
     rho_vec, _ = _schedules(params, K_ITERS - 1, data.eq_mask)
     rho = rho_vec.float() * torch.ones_like(data.zl)
+    kkt_inverse_row(data, rho, report)
     Ainv = s2.kkt_inverse(data, rho, SIGMA)
-    # timed after that first call, which also initialises the solver library
-    inv_ms = cuda_ms(lambda: s2.kkt_inverse(data, rho, SIGMA), reps=1,
-                     warmup=0)
+    inv_ms = report["kkt_inverse"]["kernel_ms"]
     before = s2.fused_stage2.launches
     out = s2.stage2_cuda(st, data, rho, Ainv, num_iters=N, sigma=SIGMA,
                           refine=0)
@@ -930,6 +933,67 @@ def phase_stage2(params, data, sc, xyz, report):
     report["stage2"] = row
 
 
+def kkt_inverse_row(data, rho, report):
+    """(c) Ã⁻¹ from csrc/kkt_inverse.cu at the serving shape: against the
+    float64 ``torch.linalg.inv`` of the same Ã (its max error over
+    max|Ã⁻¹| at most twice float32 ``torch.linalg.inv``'s), against
+    ``kkt_inverse_plain`` in the same panel order (within 4x the larger of
+    the two's own errors: both float32, rounded at other places), two
+    calls bitwise equal, every pivot flag 0; timed beside its bound, the
+    plain version and ``torch.linalg.inv`` with its transposing copy (the
+    library yardstick; the port never calls it on CUDA data)."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds, stage2_kernel as s2
+    B, n = data.p.shape
+    m = data.num_constr
+    S = n + m
+    before = s2.kkt_inverse.launches
+    X, info = s2.kkt_inverse_cuda(data, rho, SIGMA)
+    again, _ = s2.kkt_inverse_cuda(data, rho, SIGMA)
+    torch.cuda.synchronize()
+    if s2.kkt_inverse.launches != before + 2:
+        raise PhaseError("kkt_inverse: not one launch a call")
+    A = s2._kkt_matrix(data, rho, SIGMA)
+    ref = torch.linalg.inv(A.double())
+    scale = ref.abs().amax(dim=(1, 2))
+
+    def rel(Y, R=ref):
+        return float(((Y.double() - R).abs().amax(dim=(1, 2)) / scale).max())
+
+    nb = s2.kkt_inverse_nb(S, data.p.device)
+    plain = s2.kkt_inverse_plain(data, rho, SIGMA, nb=nb)
+    err, err_lib = rel(X), rel(torch.linalg.inv(A))
+    err_plain, gap_plain = rel(plain), rel(X, plain.double())
+    bitwise = torch.equal(X, again)
+    if not bitwise:
+        raise PhaseError("kkt_inverse: two calls differ")
+    if info.tolist() != [0] * B:
+        raise PhaseError(f"kkt_inverse: pivot flags {info.tolist()}")
+    if err > 2 * err_lib:
+        raise PhaseError(f"kkt_inverse: error {err:.3e} above twice "
+                         f"torch.linalg.inv's {err_lib:.3e}")
+    if gap_plain > 4 * max(err, err_plain):
+        raise PhaseError(f"kkt_inverse: {gap_plain:.3e} from the plain "
+                         f"version")
+    k_ms = cuda_ms(lambda: s2.kkt_inverse_cuda(data, rho, SIGMA), reps=5)
+    p_ms, _ = warm_ms(lambda: s2.kkt_inverse_plain(data, rho, SIGMA, nb=nb))
+    lib_ms = cuda_ms(lambda: torch.linalg.inv(A).contiguous(), reps=3)
+    b_ms, b_by = bounds.kkt_inverse(B, n, m)
+    row = dict(shape=dict(B=B, n=n, m=m, S=S, nb=nb),
+               max_abs_err=float((X.double() - ref).abs().max()),
+               max_rel_err=err, library_rel_err=err_lib,
+               plain_rel_err=err_plain, kernel_vs_plain_rel=gap_plain,
+               bitwise_repeat=bitwise, pivot_flags=info.tolist(),
+               tol="max rel error <= 2x float32 torch.linalg.inv's; plain "
+                   "within 4x the larger own error",
+               kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by,
+               library_note="torch.linalg.inv (batched LU) and its "
+                            "transposing copy, Ã formed beforehand")
+    say("c kkt_inverse", **row)
+    report["kkt_inverse"] = row
+
+
 def _counted():
     """{name: (wrapper, attribute)} of every launch counter."""
     from iadmm_tpu_torch.kernels import lstm_cell, rollout_kernel, \
@@ -938,6 +1002,7 @@ def _counted():
     return dict(cell=(cell, "launches"), cell_f32=(cell, "launches_f32"),
                 rollout=(rollout_kernel.fused_rollout, "launches"),
                 stage2=(stage2_kernel.fused_stage2, "launches"),
+                kkt_inverse=(stage2_kernel.kkt_inverse, "launches"),
                 stage2_direct=(stage2_kernel.fused_stage2, "launches_direct"),
                 stage2_cg=(stage2_kernel.fused_stage2, "launches_cg"),
                 train_fwd=(tr.train_fwd_cuda, "launches"),
@@ -5581,14 +5646,16 @@ def main(argv=()) -> int:
     fast = dict(sigma=SIGMA, use_pallas=True, gate_dtype="bfloat16",
                 matvec_mode="bf16", stage2_impl="fused")
     d = phase_serve("d serve fused", params, requests, report,
-                    ("stage2", "rollout"), rollout_impl="fused", **fast)
+                    ("stage2", "kkt_inverse", "rollout"),
+                    rollout_impl="fused", **fast)
     report["breakdown"] = serve_breakdown(params, requests[1])
     e = phase_serve("e serve step", params, requests, report,
-                    ("stage2", "cell"), rollout_impl="step", **fast)
+                    ("stage2", "kkt_inverse", "cell"), rollout_impl="step",
+                    **fast)
     # Main path: the requests of (d) and (e), each counted from 0 just
     # before and read just after; reference solves come after the reading.
-    cell_all, roll_all, s2_all = (d[k] + e[k]
-                                  for k in ("cell", "rollout", "stage2"))
+    cell_all, roll_all, s2_all, kinv_all = (
+        d[k] + e[k] for k in ("cell", "rollout", "stage2", "kkt_inverse"))
     say("main path launches", fused=d, step=e)
 
     data_t = qp_batch(TRAIN_BATCH, seed=2)
@@ -5625,9 +5692,10 @@ def main(argv=()) -> int:
     del data_t, scaled_t
     requests = [qp_batch(SERVE_BATCH, seed=100 + r) for r in range(3)]
     nf = phase_serve("n serve float32", params, requests, report,
-                     ("stage2", "cell_f32"), lu64=True,
+                     ("stage2", "kkt_inverse", "cell_f32"), lu64=True,
                      use_pallas=True)                                # (n)
     s2_all += nf["stage2"]
+    kinv_all += nf["kkt_inverse"]
     say("float32 serving path launches", **{k: v for k, v in nf.items()
                                              if v})
 
@@ -5681,6 +5749,7 @@ def main(argv=()) -> int:
     cell_all += x["cell"]
     roll_all += x["rollout"]
     s2_all += x["stage2"]
+    kinv_all += x["kkt_inverse"]
     say("utilities path launches", **{k: n for k, n in x.items() if n})
 
     def entry(name, src, replaces, key, launches):
@@ -5735,6 +5804,11 @@ def main(argv=()) -> int:
               "iadmm_tpu/kernels/rollout_kernel.py:56", "rollout", roll_all),
         entry("stage2_kkt", "iadmm_tpu_torch/kernels/csrc/stage2.cu",
               "iadmm_tpu/kernels/stage2_kernel.py:59", "stage2", s2_all),
+        entry("stage2_kkt_inverse",
+              "iadmm_tpu_torch/kernels/csrc/kkt_inverse.cu",
+              "none: the JAX package's jnp.linalg.inv at "
+              "iadmm_tpu/kernels/stage2_kernel.py:267", "kkt_inverse",
+              kinv_all),
         *train_entries("", "train_kernels",
                        {k: g[k] + r[k] + v[k] for k in g}),
         dict(name="bsr_matvec", route="cuda",

@@ -6,7 +6,8 @@ prints the bounds of the TPU kernels the port has not ported yet (none are
 left).  ``chip_smoke.py`` computes the ported kernels' bounds from the
 inputs of its run with :func:`cell`, :func:`train_fwd`, :func:`train_bwd`,
 :func:`train_fwd_seg`, :func:`train_bwd_seg` (each at the bf16 or the
-float32 profile), :func:`stage2` (each solver), :func:`bsr_matvec`,
+float32 profile), :func:`stage2` (each solver), :func:`kkt_inverse` (its 'kkt' operand),
+:func:`bsr_matvec`,
 :func:`bsr_matvec_group`,
 :func:`kkt_pass` (the KKT pass those kernels run, alone) and ``bound_ms``.
 
@@ -162,6 +163,16 @@ def stage2(B, N, n, m, solver="kkt", cg_iters=100, refine=None):
     nbytes = 4 * B * (operand + n * n + m * n + (2 * n + 4 * m)
                       + (2 * n + 2 * m + 2 * N))
     return bound_ms(nbytes, f32_ops=N * B * (solve + rest))
+
+
+def kkt_inverse(B, n, m):
+    """Bound of forming Ã and its inverse, B instances, S = n + m, float32:
+    Q, A0 and ρ read once and Ã⁻¹ written once; 2·S³ FFMA operations a
+    matrix (an explicit inverse by elimination with row pivoting: getrf's
+    2/3·S³ and getri's 4/3·S³, or Gauss–Jordan's 2·S³)."""
+    S = n + m
+    nbytes = 4 * B * (n * n + m * n + m + S * S)
+    return bound_ms(nbytes, f32_ops=2.0 * B * S ** 3)
 
 
 def kkt_pass(B, n, m, dtype="bfloat16", nv=1):

@@ -5,8 +5,10 @@ fixed across the polish loop, so each solver's operand is formed once
 outside the kernel, as the JAX package forms it outside its Pallas call:
 
 - ``'kkt'``: the float32 inverse Ã⁻¹ of the full saddle-point matrix
-  Ã = [[Q+σI, A0ᵀ], [A0, −diag(1/ρ)]] (``torch.linalg.inv``); a step is
-  xv = Ã⁻¹·b̃ and ``refine`` optional passes.
+  Ã = [[Q+σI, A0ᵀ], [A0, −diag(1/ρ)]] (on CUDA data formed and inverted by
+  ``csrc/kkt_inverse.cu``, blocked Gauss–Jordan with row pivoting; on CPU
+  data ``torch.linalg.inv``); a step is xv = Ã⁻¹·b̃ and ``refine`` optional
+  passes.
 - ``'direct'``: the explicit inverse of the condensed SPD matrix
   M = Q + σI + A0ᵀdiag(ρ)A0 (float32 products with no TF32, then
   ``torch.linalg.cholesky`` and ``torch.cholesky_solve``); a step is
@@ -57,18 +59,147 @@ def _full_float32():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def kkt_inverse(data: QPBatch, rho: torch.Tensor, sigma: float):
-    """Float32 Ã⁻¹ of the full saddle-point matrix, (B, n+m, n+m), stored
-    row-major.  ``torch.linalg.inv`` returns it column-major and the kernel
-    reads its rows, so forming the operand ends in a transposing copy (128
-    MB at B=8, n=m=1000), paid once a ``fused_stage2`` call."""
+def _kkt_matrix(data: QPBatch, rho: torch.Tensor, sigma: float):
+    """Ã in float32, (B, n+m, n+m)."""
     f32 = torch.float32
     n = data.num_var
     Q, A0 = data.Q.to(f32), data.A0.to(f32)
     eye = torch.eye(n, dtype=f32, device=Q.device)
     top = torch.cat([Q + sigma * eye, A0.transpose(1, 2)], dim=-1)
     bot = torch.cat([A0, torch.diag_embed(-1.0 / rho)], dim=-1)
-    return torch.linalg.inv(torch.cat([top, bot], dim=1)).contiguous()
+    return torch.cat([top, bot], dim=1)
+
+
+def kkt_inverse(data: QPBatch, rho: torch.Tensor, sigma: float):
+    """Float32 Ã⁻¹ of the full saddle-point matrix, (B, n+m, n+m), stored
+    row-major, as the 'kkt' kernel reads it.  On CUDA data one launch of
+    ``csrc/kkt_inverse.cu`` forms Ã and writes its inverse
+    (:func:`kkt_inverse_cuda`; counted in ``kkt_inverse.launches``); on CPU
+    data ``torch.linalg.inv``'s result, copied row-major."""
+    if data.p.is_cuda:
+        return kkt_inverse_cuda(data, rho, sigma)[0]
+    return torch.linalg.inv(_kkt_matrix(data, rho, sigma)).contiguous()
+
+
+kkt_inverse.launches = 0   # launches of csrc/kkt_inverse.cu
+
+# The widest panel of csrc/kkt_inverse.cu (its scratch is sized for it) and
+# its flags an instance
+KINV_NB_MAX = _build.header_int("kkt_inverse.cu", "NB_MAX")
+KINV_FLAGS = _build.header_int("kkt_inverse.cu", "FLAGS")
+KINV_SB = _build.header_int("kkt_inverse.cu", "SB")   # a sub-panel's width
+_KINV_ARGS = ([_build.P] * 3 + [_build.F] + [_build.P] * 7 + [_build.I] * 3
+              + [_build.P])
+
+
+def kkt_inverse_nb(S: int, dev) -> int:
+    """The panel width the kernel takes at S = n + m on ``dev`` (the
+    widest of 128, 64, 32 whose panel fits a cluster's shared memory; 0
+    where none does)."""
+    with torch.cuda.device(dev):
+        return _build.function("kkt_inverse", "iadmm_kkt_inverse_nb",
+                               [_build.I])(S)
+
+
+def kkt_inverse_cuda(data: QPBatch, rho: torch.Tensor, sigma: float):
+    """(Ã⁻¹, info) on CUDA tensors: Ã⁻¹ (B, S, S) row-major, S = n + m;
+    info (B,) int32, each instance's first zero pivot's row + 1, else 0
+    (nothing on the hot path reads it).  One launch, no host sync."""
+    dev = data.p.device
+    B, n = data.p.shape
+    m = data.num_constr
+    S = n + m
+    if (tuple(data.Q.shape) != (B, n, n) or tuple(data.A0.shape) != (B, m, n)
+            or tuple(rho.shape) != (B, m)):
+        raise ValueError(f"kkt_inverse: Q {tuple(data.Q.shape)}, A0 "
+                         f"{tuple(data.A0.shape)}, rho {tuple(rho.shape)} do "
+                         f"not fit B={B}, n={n}, m={m}")
+    if kkt_inverse_nb(S, dev) == 0:
+        raise ValueError(f"kkt_inverse: S={S} is above what a cluster's "
+                         f"shared memory takes on this device")
+    f32, i32 = torch.float32, torch.int32
+    Q, A0, r = (_build.aligned(t.to(f32)) for t in (data.Q, data.A0, rho))
+    ldw = -(-S // 4) * 4
+    out = torch.empty((B, S, S), dtype=f32, device=dev)
+    W = torch.empty((B, S, ldw), dtype=f32, device=dev)
+    Pb, Rb = (torch.empty((B, 2, KINV_NB_MAX, ldw), dtype=f32, device=dev)
+              for _ in range(2))
+    physb = torch.empty((B, 2, S), dtype=i32, device=dev)
+    flags = torch.zeros((B, KINV_FLAGS), dtype=i32, device=dev)
+    info = torch.zeros((B,), dtype=i32, device=dev)
+    fn = _build.function("kkt_inverse", "iadmm_kkt_inverse", _KINV_ARGS)
+    _build.check(fn(*(t.data_ptr() for t in (Q, A0, r)), float(sigma),
+                    *(t.data_ptr() for t in (out, W, Pb, Rb, physb, flags,
+                                             info)),
+                    B, n, m, _build.stream_ptr(dev)), "iadmm_kkt_inverse")
+    with _COUNT_LOCK:
+        kkt_inverse.launches += 1
+    return out, info
+
+
+def kkt_inverse_plain(data: QPBatch, rho: torch.Tensor, sigma: float,
+                      nb: int = KINV_NB_MAX, sb: int = KINV_SB):
+    """Plain PyTorch version of ``csrc/kkt_inverse.cu`` in its panel order,
+    float32: blocked Gauss–Jordan with row pivoting over panels of ``nb``
+    columns, each factored in sub-panels of ``sb`` (the largest |value|
+    among the rows at and below the pivot's, ties to the lowest row; a
+    pivot step updates its sub-panel's columns, the sub-panel's end the
+    panel's others, the panel's end the other columns).  Rows stay where
+    they lie in W: ``phys`` maps each logical row to its row of W.  Returns
+    Ã⁻¹, (B, S, S) row-major."""
+    W = _kkt_matrix(data, rho, sigma).clone()
+    B, S, _ = W.shape
+    dev = W.device
+    bi = torch.arange(B, device=dev)
+    phys = torch.arange(S, device=dev).repeat(B, 1)
+
+    def at(rows, cols):   # W's entries of logical rows x columns
+        return bi[:, None, None], phys[:, rows, None], cols[None, None, :]
+
+    def rank_update(M, rows, cols, other):
+        """M's columns ``other`` take the rank update of its columns
+        ``cols`` (factored) with the rows ``rows``' values before it."""
+        R = M[:, rows][:, :, other]
+        base = M[:, :, other].clone()
+        base[:, rows] = 0
+        M[:, :, other] = base + M[:, :, cols] @ R
+
+    with _full_float32():
+        for k in range(0, S, nb):
+            nbw = min(nb, S - k)
+            panel = torch.arange(k, k + nbw, device=dev)
+            P = W[at(slice(None), panel)].clone()
+            for s0 in range(0, nbw, sb):
+                sw = min(sb, nbw - s0)
+                cols = torch.arange(s0, s0 + sw, device=dev)
+                for jj in range(s0, s0 + sw):
+                    g = k + jj
+                    p = g + P[:, g:, jj].abs().argmax(dim=1)
+                    P[bi, g], P[bi, p] = P[bi, p].clone(), P[bi, g].clone()
+                    phys[bi, g], phys[bi, p] = phys[bi, p].clone(), phys[bi, g]
+                    inv = 1.0 / P[:, g, jj]
+                    r = P[:, g, s0:s0 + sw] * inv[:, None]
+                    r[:, jj - s0] = inv
+                    f = P[:, :, jj].clone()
+                    Ps = P[:, :, s0:s0 + sw]
+                    Ps[:, :, jj - s0] = 0
+                    Ps = Ps - f[:, :, None] * r[:, None, :]
+                    Ps[:, g, :] = r
+                    P[:, :, s0:s0 + sw] = Ps
+                rest = torch.cat([torch.arange(0, s0, device=dev),
+                                  torch.arange(s0 + sw, nbw, device=dev)])
+                if rest.numel():
+                    rank_update(P, slice(k + s0, k + s0 + sw), cols, rest)
+            other = torch.cat([torch.arange(0, k, device=dev),
+                               torch.arange(k + nbw, S, device=dev)])
+            if other.numel():
+                R = W[at(panel, other)]
+                base = W[at(slice(None), other)].clone()
+                base[:, k:k + nbw] = 0
+                W[at(slice(None), other)] = base + P @ R
+            W[at(slice(None), panel)] = P
+    pinv = torch.argsort(phys, dim=1)
+    return W[bi[:, None, None], phys[:, :, None], pinv[:, None, :]]
 
 
 def direct_inverse(data: QPBatch, rho: torch.Tensor, sigma: float):

@@ -31,6 +31,8 @@ from iadmm_tpu_torch.types import IterState
 
 pytestmark = pytest.mark.cuda
 
+SERVE_SIGMA = 6e-6   # the serving polish's σ
+
 
 @pytest.fixture
 def dev():
@@ -311,6 +313,94 @@ def test_stage2_ragged_shapes(no_tf32, solver, B, n, mi, me):
         assert torch.equal(out[6], ref[6])
     again = kern(st, data, rho, op, **kw)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def _kkt_operands(dev, B, n, mi, me, seed=0, zero_rows=0):
+    """A QP batch on the card and ρ per row from the serving schedule's
+    range (ρ = σ(r), r ~ U(−3, 1): 0.047–0.73, the equality rows 1e3x); the
+    first ``zero_rows`` rows and columns of Q zeroed."""
+    data = _qp(dev, B=B, n=n, mi=mi, me=me)
+    if zero_rows:
+        Q = data.Q.clone()
+        Q[:, :zero_rows, :] = 0
+        Q[:, :, :zero_rows] = 0
+        data = dataclasses.replace(data, Q=Q)
+    g = torch.Generator().manual_seed(seed)
+    r = torch.sigmoid(torch.rand(B, generator=g) * 4 - 3).to(dev)
+    rho = rho_vector(r, data.eq_mask).float()
+    return data, rho * torch.ones_like(data.zl, dtype=torch.float32)
+
+
+def _inv_err(X, ref):
+    """max |X − ref| over max |ref|, the largest over the batch."""
+    scale = ref.abs().amax(dim=(1, 2))
+    return float(((X.double() - ref).abs().amax(dim=(1, 2)) / scale).max())
+
+
+# (B, n, mi, me): the serving shape (S = 2000), then S = 16, 37, 257, 1000
+# with m != n, 3000, and B = 64 at S = 37 (more instances than clusters in
+# flight: the same CTAs take them in rounds)
+KKT_INVERSE_SHAPES = [(8, 1000, 500, 500), (1, 8, 4, 4), (3, 20, 9, 8),
+                      (2, 130, 70, 57), (5, 600, 250, 150),
+                      (1, 1500, 750, 750), (64, 20, 9, 8)]
+
+
+@pytest.mark.parametrize("B,n,mi,me", KKT_INVERSE_SHAPES)
+def test_stage2_kkt_inverse_matches_float64(no_tf32, B, n, mi, me):
+    """csrc/kkt_inverse.cu against float64 ``torch.linalg.inv`` of the same
+    Ã (σ = 6e-6): its max error over max|Ã⁻¹| at most twice float32
+    ``torch.linalg.inv``'s on the same inputs.  Against kkt_inverse_plain,
+    the same panel order in PyTorch: within 4x the larger of the two's own
+    errors, since both are float32 eliminations with the same pivots that
+    round at other places (the kernel's panel updates are fmaf, the
+    twin's a product then a difference; the rank-nb sums are one fmaf
+    chain in the kernel, cuBLAS's order in the twin).  Two calls bitwise
+    equal; the pivot flag 0."""
+    data, rho = _kkt_operands(no_tf32, B, n, mi, me)
+    S = n + mi + me
+    X, info = ts2.kkt_inverse_cuda(data, rho, SERVE_SIGMA)
+    A = ts2._kkt_matrix(data, rho, SERVE_SIGMA)
+    ref = torch.linalg.inv(A.double())
+    err = _inv_err(X, ref)
+    assert X.shape == (B, S, S) and X.is_contiguous()
+    assert err <= 2 * _inv_err(torch.linalg.inv(A), ref), err
+    nb = ts2.kkt_inverse_nb(S, no_tf32)
+    P = ts2.kkt_inverse_plain(data, rho, SERVE_SIGMA, nb=nb)
+    assert _inv_err(X, P.double()) <= 4 * max(err, _inv_err(P, ref))
+    again, _ = ts2.kkt_inverse_cuda(data, rho, SERVE_SIGMA)
+    assert torch.equal(X, again)
+    assert info.tolist() == [0] * B
+
+
+def test_stage2_kkt_inverse_row_swaps(no_tf32):
+    """σ = 0 and Q's first 8 rows zero: Ã's leading entries are zero, so
+    the first pivots come from the A0 rows; the inverse is as accurate as
+    float32 ``torch.linalg.inv``'s within 2x, the pivot flag 0.  A
+    singular Ã (Q and A0 zero: the first n pivots are zero) sets each
+    instance's flag to its first zero pivot's row + 1."""
+    data, rho = _kkt_operands(no_tf32, 2, 40, 15, 15, zero_rows=8)
+    A = ts2._kkt_matrix(data, rho, 0.0)
+    assert bool((A[:, 0, 0] == 0).all())
+    X, info = ts2.kkt_inverse_cuda(data, rho, 0.0)
+    ref = torch.linalg.inv(A.double())
+    assert _inv_err(X, ref) <= 2 * _inv_err(torch.linalg.inv(A), ref)
+    assert info.tolist() == [0, 0]
+    zero = dataclasses.replace(data, Q=torch.zeros_like(data.Q),
+                               A0=torch.zeros_like(data.A0))
+    _, info = ts2.kkt_inverse_cuda(zero, rho, 0.0)
+    assert info.tolist() == [1, 1]
+
+
+def test_stage2_kkt_inverse_launches(no_tf32):
+    """One launch of csrc/kkt_inverse.cu a ``fused_stage2(solver='kkt')``
+    call on CUDA data (and N polish steps)."""
+    data, st, rho = _stage2_inputs(no_tf32)
+    before, steps = ts2.kkt_inverse.launches, ts2.fused_stage2.launches
+    for _ in range(2):
+        ts2.fused_stage2(st, data, rho[0], num_iters=3, solver="kkt")
+    torch.cuda.synchronize()
+    assert ts2.kkt_inverse.launches == before + 2
+    assert ts2.fused_stage2.launches == steps + 6
 
 
 @pytest.mark.parametrize("solver", ["direct", "cg"])

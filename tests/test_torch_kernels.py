@@ -10,6 +10,7 @@ rtol 3e-4 / atol 3e-5 ('kkt'), 1e-3 / 1e-4 ('direct') and 5e-3 / 5e-4
 the card.
 """
 
+import dataclasses
 import inspect
 
 import jax
@@ -29,6 +30,7 @@ from iadmm_tpu import types as jtypes
 from iadmm_tpu_torch.kernels import lstm_cell as tcell
 from iadmm_tpu_torch.kernels import rollout_kernel as troll
 from iadmm_tpu_torch.kernels import stage2_kernel as ts2
+from iadmm_tpu_torch.solvers.step import rho_vector as t_rho_vector
 
 from torch_bridge import (assert_close, jax_lstm_params, params_to_torch,
                           to_torch)
@@ -356,3 +358,84 @@ def test_kkt_inverse_is_row_major():
     top = torch.cat([Q + 1e-4 * torch.eye(8), A0.mT], -1)
     bot = torch.cat([A0, torch.diag_embed(-1.0 / rho)], -1)
     assert torch.equal(Ainv, torch.linalg.inv(torch.cat([top, bot], 1)))
+
+
+def _kkt_case(B, n, mi, me, zero_rows=0):
+    """A float32 QP batch and its per-row ρ; the first ``zero_rows`` rows
+    and columns of Q zeroed (σ = 0 then leaves Ã's leading entries zero, so
+    the first pivots must come from the A0 rows)."""
+    _, tdata = _qp(B, n, mi, me, 7)
+    if zero_rows:
+        Q = tdata.Q.clone()
+        Q[:, :zero_rows, :] = 0
+        Q[:, :, :zero_rows] = 0
+        tdata = dataclasses.replace(tdata, Q=Q)
+    rho = t_rho_vector(torch.tensor(0.1), tdata.eq_mask)
+    return tdata, (rho * torch.ones_like(tdata.zl)).float()
+
+
+def _rel_err(X, ref):
+    """max |X − ref| over max |ref|, the largest over the batch."""
+    scale = ref.abs().amax(dim=(1, 2))
+    return float(((X.double() - ref).abs().amax(dim=(1, 2)) / scale).max())
+
+
+# (B, n, mi, me, nb, sigma, zero_rows): nb dividing S (16 / 4) and not
+# (37 / 8, 50 / 7), one panel wider than S (80 / 128), the swap-forcing case
+KINV_PLAIN_CASES = [(2, 8, 4, 4, 4, 1e-4, 0), (3, 20, 9, 8, 8, 6e-6, 0),
+                    (2, 30, 10, 10, 7, 6e-6, 0), (1, 40, 20, 20, 128, 6e-6, 0),
+                    (2, 40, 15, 15, 16, 0.0, 8)]
+
+
+@pytest.mark.parametrize("B,n,mi,me,nb,sigma,zero_rows", KINV_PLAIN_CASES)
+def test_kkt_inverse_plain_matches_float64(B, n, mi, me, nb, sigma,
+                                           zero_rows):
+    """kkt_inverse_plain (the kernel's blocked Gauss–Jordan, float32)
+    against float64 ``torch.linalg.inv`` of the same Ã: its max error over
+    max|Ã⁻¹| at most twice float32 ``torch.linalg.inv``'s (both are row
+    pivoted float32 eliminations; the bound is the card test's); with
+    σ = 0 and Q's first rows zero, Ã[0, 0] = 0 and the pivots come from
+    A0."""
+    tdata, rho = _kkt_case(B, n, mi, me, zero_rows)
+    A = ts2._kkt_matrix(tdata, rho, sigma)
+    if zero_rows:
+        assert bool((A[:, 0, 0] == 0).all())
+    ref = torch.linalg.inv(A.double())
+    X = ts2.kkt_inverse_plain(tdata, rho, sigma, nb=nb)
+    assert X.shape == A.shape and X.dtype == torch.float32
+    assert _rel_err(X, ref) <= 2 * _rel_err(torch.linalg.inv(A), ref)
+
+
+# (nb, sb): panels that divide S = 24 (3 … 24) and that do not (5, 7, 10,
+# 40 > S), each cut into sub-panels that divide it and that do not
+KINV_SPLITS = [(3, 3), (4, 2), (6, 4), (8, 3), (12, 5), (5, 5), (7, 2),
+               (10, 4), (24, 7), (40, 32)]
+
+
+@pytest.mark.parametrize("nb,sb", KINV_SPLITS)
+def test_kkt_inverse_plain_panel_widths(nb, sb):
+    """The panel splitting: at panel and sub-panel widths that divide S = 24
+    and that do not, the result agrees with the unsplit elimination (one
+    panel, one sub-panel) within 4x the larger of the two's own error
+    against float64 (the splits change where rounding falls, not the
+    pivots on this well-separated case), and is as accurate as float32
+    ``torch.linalg.inv`` within 2x."""
+    tdata, rho = _kkt_case(2, 12, 6, 6)
+    A = ts2._kkt_matrix(tdata, rho, 1e-4)
+    ref = torch.linalg.inv(A.double())
+    X = ts2.kkt_inverse_plain(tdata, rho, 1e-4, nb=nb, sb=sb)
+    one = ts2.kkt_inverse_plain(tdata, rho, 1e-4, nb=24, sb=24)
+    own = max(_rel_err(X, ref), _rel_err(one, ref))
+    assert _rel_err(X, one.double()) <= 4 * own
+    assert _rel_err(X, ref) <= 2 * _rel_err(torch.linalg.inv(A), ref)
+
+
+def test_kkt_inverse_cuda_rejects_bad_shapes():
+    """The inverse kernel's wrapper checks Q, A0 and ρ against B, n, m
+    before any CUDA call, so the check holds on the CPU."""
+    tdata, rho = _kkt_case(2, 8, 4, 4)
+    with pytest.raises(ValueError, match="kkt_inverse: .* do not fit"):
+        ts2.kkt_inverse_cuda(tdata, rho[:, :-1], 1e-4)
+    with pytest.raises(ValueError, match="kkt_inverse: .* do not fit"):
+        ts2.kkt_inverse_cuda(dataclasses.replace(tdata, Q=tdata.Q[:1]), rho,
+                             1e-4)
