@@ -17,13 +17,19 @@
 //                         persistent tile, wgmma fed by a TMA ring)
 //   6. update             delta = Σ partials + b_h, xv ← xv − delta, then
 //                         the x/z/y update
-// The matrices stay in L2 between passes (32 MB of bf16 data at B = 8).
+// At n = m = 1000 and B = 8 the matrices stay in L2 between passes (32 MB
+// of bf16 data).  At m = 2n they do not: at n = 1000, B = 8 they are 48 MB,
+// and the cell's H and C streams (~58 MB a step at h = 200) evict them, so
+// the passes read HBM.  Measured on an H100 at that shape (h = 200), the
+// two passes and their finishes take ~68 of a ~159 µs step, 27% of the
+// least time of one HBM sweep of [Q; A0] a step.
 //
 // Bound on the H100: the gate GEMM, 2·B·(n+m)·h·4h operations a step
 // (82 GFLOP at B = 8, h = 800: 83 µs at 989 TFLOP/s); the two KKT passes
-// read 2 x 4 MB of bf16 data per instance and step (kkt_matvec.cuh), which
-// the L2 serves.  U is re-laid for the rollout's cell tile (Ut, HB_ROLLOUT
-// units a tile) once per rollout, by the wrapper.
+// read 2 x 4 MB of bf16 data per instance and step at n = m = 1000
+// (kkt_matvec.cuh), which the L2 serves there.  U is re-laid for the
+// rollout's cell tile (Ut, HB_ROLLOUT units a tile) once per rollout, by
+// the wrapper.
 //
 // Numerics follow the TPU kernel: every vector is rounded to bf16 before
 // each matvec (rollout_kernel.py:78-91); the x·W term is float32 xv and g
