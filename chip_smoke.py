@@ -27,7 +27,9 @@ surface:
       the untrained recurrence); timed at K=100, with its cell tile and
       cluster, a call's device µs by part (cell, colpass, finish, update)
       and busy share, beside K x torch.matmul of H·U in bf16 (the cell's
-      GEMM alone, a yardstick the port never calls);
+      GEMM alone, a yardstick the port never calls); then the Random_QP
+      serving shape (n=1000, 2000 rows, h=200) held to the plain version
+      at K=6, and its cell's device µs a step;
   (w) the serving rollout's determinism at (b)'s shape (K=100, bf16):
       30 calls in one process, each (x, y, z) bitwise the first; the
       batch's two halves as B=4 calls, each bitwise the B=8 rows; 40 B=8
@@ -254,9 +256,10 @@ to ``results/chip_smoke*/`` and are removed at the end.
 Two checkouts can be held bitwise equal (a kernel change that must not
 move a result): the bf16-gate cell at six shapes and the float32-gate
 cell at five (the flagship shape with both state dtypes, ragged ones), the
-serving rollout's (x, y, z) at B=8 (K=6 and K=100) and at B=2 on two
-ragged shapes (S = 1037 with h = 808; h = 212), a J=6 bf16 training
-forward at B=2, the float32 stream pair and segment
+serving rollout's (x, y, z) at B=8 (K=6 and K=100), at B=2 on two
+ragged shapes (S = 1037 with h = 808; h = 212) and at the Random_QP
+serving shape (B=8, n=1000, m=2000, h=200; K=6 and K=100), a J=6 bf16
+training forward at B=2, the float32 stream pair and segment
 pair (segments of 2) at J=6 with every gradient and start-state
 cotangent, the J=100 forward at B=2 at both profiles, one bf16 segment
 call at B=16, (d)'s first request with its LU and pre-polish references,
@@ -330,6 +333,10 @@ RAGGED_S, RAGGED_H = 1037, 808
 RAGGED_TRAIN = ((300, 150, 137, 212), (300, 150, 137, 808))  # n, mi, me, h
 # The rollout's ragged shapes (B=2): S = 1037 with h = 808, and h = 212
 ROLLOUT_RAGGED = ((537, 250, 250, RAGGED_H), (300, 150, 137, 212))
+# The Random_QP serving shape (the benchmark's rqp2000-serve-polish: n=1000,
+# 2000 two-sided rows, h=200, B=8), with W_h drawn at a hundredth as its
+# traffic draws it
+RQP_N, RQP_M, RQP_H, RQP_WH = 1000, 2000, 200, 0.01
 # The rollout's device time by part: CUDA kernel names holding these
 ROLLOUT_PARTS = (("cell", ("rollout_cell_kernel", "bf16_kernel")),
                  ("colpass", ("colpass",)), ("finish", ("finish_kernel",)),
@@ -466,6 +473,30 @@ def qp_batch(B, seed, n=N_VAR, mi=N_INEQ, me=N_EQ):
     ds = generate("QP", num_var=n, num_ineq=mi, num_eq=me, data_size=B,
                   seed=seed)
     return to_qp_batch(ds, device=DEV)
+
+
+def rqp_inputs(B=SERVE_BATCH, seed=1):
+    """(params, Ruiz-scaled batch) of the Random_QP serving shape: the
+    weights of seed 0 at h = RQP_H with W_h at RQP_WH, B instances."""
+    import torch
+    from iadmm_tpu_torch.problems import generate, to_qp_batch
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.cells import lstm_init
+    params = lstm_init(torch.Generator().manual_seed(0), 2, RQP_H, K_ITERS,
+                       device=DEV)
+    params["W_h"] = params["W_h"] * RQP_WH
+    ds = generate("Random_QP", num_var=RQP_N, num_ineq=RQP_M, data_size=B,
+                  seed=seed)
+    return params, scale_batch(to_qp_batch(ds, device=DEV))[0]
+
+
+def cell_us_a_step(params, data, h, K=K_ITERS):
+    """The rollout cell's device µs a step in one K-step call, from the
+    profiler (rollout_breakdown's 'cell')."""
+    from iadmm_tpu_torch.kernels import rollout_kernel as rk
+    b = rollout_breakdown(lambda: rk.fused_rollout(params, data, hidden=h,
+                                                   K=K, sigma=SIGMA))
+    return b["device_us_by_part"]["cell"] / K
 
 
 def cell_case(params, B, S, h, hc, g):
@@ -689,6 +720,18 @@ def phase_rollout(params, data, report):
         nbytes, bf16_ops=K * (2.0 * B * S * h * 4 * h
                               + 4.0 * B * (n * n + 2 * m * n)),
         f32_ops=K * B * S * (2.0 * 2 * 4 * h + 20.0 * h))
+    # the Random_QP serving shape: held to the plain version at K_CHECK,
+    # and its cell's device µs a step (the flagship's is in parts)
+    rqp_params, rqp_data = rqp_inputs()
+    out6 = rk.fused_rollout(rqp_params, rqp_data, hidden=RQP_H, K=K_CHECK,
+                            sigma=SIGMA)
+    ref6 = rk.rollout_plain(rqp_params, rqp_data, hidden=RQP_H, K=K_CHECK,
+                            sigma=SIGMA)
+    rqp_errs = [compare(f"rollout Random_QP {nm}", a, b_,
+                        1e-2 * float(b_.abs().max()), 2e-2)
+                for nm, a, b_ in zip("xyz", out6, ref6)]
+    rqp_cell_us = cell_us_a_step(rqp_params, rqp_data, RQP_H)
+    del rqp_params, rqp_data, out6
     row = dict(shape=dict(B=B, n=n, m=m, h=h, K=K),
                max_abs_err=max(e[0] for e in errs),
                max_rel_err=max(e[1] for e in errs),
@@ -711,7 +754,10 @@ def phase_rollout(params, data, report):
                device_us_by_part=parts["device_us_by_part"],
                cell_us_per_iteration=parts["device_us_by_part"]["cell"] / K,
                device_ms=parts["device_ms"], wall_ms=parts["wall_ms"],
-               busy_share=parts["busy_share"])
+               busy_share=parts["busy_share"],
+               random_qp=dict(shape=dict(B=B, n=RQP_N, m=RQP_M, h=RQP_H),
+                              max_abs_err_at_K6=max(e[0] for e in rqp_errs),
+                              cell_us_per_iteration=rqp_cell_us))
     say("b rollout", **row)
     report["rollout"] = row
     return scaled, sc, xyz
@@ -5205,6 +5251,12 @@ def snapshot(path):
         d = scale_batch(qp_batch(2, seed=3, n=n, mi=mi, me=me))[0]
         out[f"rollout B=2 S={n + mi + me} h={h} K={K_ITERS}"] = \
             rk.fused_rollout(p, d, hidden=h, K=K_ITERS, sigma=SIGMA)
+    # the Random_QP serving shape (B=8, n=1000, m=2000, h=200)
+    p, d = rqp_inputs()
+    for K in (K_CHECK, K_ITERS):
+        out[f"rollout Random_QP B={SERVE_BATCH} h={RQP_H} K={K}"] = \
+            rk.fused_rollout(p, d, hidden=RQP_H, K=K, sigma=SIGMA)
+    del p, d
     scaled, _ = scale_batch(qp_batch(TRAIN_BATCH, seed=2))
     w, st, dd = train_inputs(params, scaled)
     pr, dr, final, _ = ttr.train_fwd_cuda(w, st, dd, t0=0, J=K_CHECK,
@@ -5532,8 +5584,10 @@ def time_rollout(path):
     write the times to ``path`` as JSON, its (x, y, z) to ``path``.pt
     (for --compare): calls of one shape back to back; a B=7 call alone;
     B=8 and B=7 calls in turn (a batch and its last, partial one); and
-    twice the device breakdown and busy share of a B=8 call.  Run in two
-    checkouts, in turns, to compare them on one card."""
+    twice the device breakdown and busy share of a B=8 call.  Then, at
+    both serving shapes (the flagship's h = 800 and Random_QP's h = 200,
+    B=8, K=100), the call's ms and the cell's device µs a step.  Run in
+    two checkouts, in turns, to compare them on one card."""
     import torch
     from iadmm_tpu_torch.kernels import rollout_kernel as rk
     from iadmm_tpu_torch.scaling import scale_batch
@@ -5554,8 +5608,20 @@ def time_rollout(path):
         cuda_ms(lambda: (call(full), call(part)), reps=3) for _ in range(2)]
     out["B=8 busy"] = [rollout_breakdown(lambda: call(full))
                        for _ in range(2)]
+    rqp_params, rqp_data = rqp_inputs()
+    for tag, (p, d, h) in (("flagship h=800", (params, full, HIDDEN)),
+                           ("Random_QP h=200", (rqp_params, rqp_data,
+                                                RQP_H))):
+        out[f"{tag} ms"] = [cuda_ms(lambda: rk.fused_rollout(
+            p, d, hidden=h, K=K_ITERS, sigma=SIGMA), reps=5)
+            for _ in range(2)]
+        out[f"{tag} cell us a step"] = cell_us_a_step(p, d, h)
     torch.save({f"rollout B={SERVE_BATCH} K={K_ITERS}": [
-        t.cpu() for t in call(full)]}, path + ".pt")
+        t.cpu() for t in call(full)],
+        f"rollout Random_QP B={SERVE_BATCH} h={RQP_H} K={K_ITERS}": [
+            t.cpu() for t in rk.fused_rollout(
+                rqp_params, rqp_data, hidden=RQP_H, K=K_ITERS,
+                sigma=SIGMA)]}, path + ".pt")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)

@@ -199,3 +199,22 @@ def test_cell_over_rollout_ut_matches_plain(h, S):
     ref = lc.cell_plain(W, U, b, W_h, b_h, x, H, C, "float32")
     for a, r in zip((delta, H_new, C_new), ref):
         torch.testing.assert_close(a, r, rtol=1e-12, atol=1e-12)
+
+
+def test_rollout_tile_shared_memory():
+    """The rollout tile's shared memory, as ``RolloutShape::SMEM`` adds it
+    up from the header's constants, fits the H100's 232,448 bytes a block:
+    1024 bytes of alignment, 3 ring stages of a 128-row A box and 4·HB Ut
+    columns (bf16, BK deep) with two 8-byte barriers each, two weight
+    buffers of WS floats a unit, two buffers of the tile's C entries (rows
+    of HB + 4 floats) and their four 8-byte barriers."""
+    hdr = "cell_gemm.cuh"
+    bm, bk = (_build.header_int("hopper.cuh", k) for k in ("BM", "BK"))
+    hb, ws = _build.ROLLOUT_HB, _build.header_int(hdr, "WS")
+    stages = _build.header_int(hdr, "S")
+    text = (_build.CSRC / hdr).read_text()
+    assert "static constexpr int CLD = HB_ROLLOUT + 4;" in text
+    smem = (1024 + stages * (bm * bk * 2 + 4 * hb * bk * 2) + 2 * stages * 8
+            + 2 * ws * hb * 4 + 2 * bm * (hb + 4) * 4 + 4 * 8)
+    assert (stages, ws, smem) == (3, 20, 228432)
+    assert smem <= 232448

@@ -155,6 +155,32 @@ def test_rollout_wide_tile_matches_plain(dev, h, n, mi, me):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("fam,h,B,n,mi,me", [
+    ("Random_QP", 200, 2, 150, 300, 0), ("Random_QP", 212, 2, 150, 300, 0),
+    ("QP", 808, 2, 537, 250, 250)])
+def test_rollout_serving_shapes_match_plain(dev, fam, h, B, n, mi, me):
+    """The rollout at ragged versions of the serving shapes: Random_QP's
+    m = 2n two-sided rows at h = 200 and 212 (B·(n+m) = 900 rows, a
+    cluster's second band partly past them; 212 not a multiple of 8) and
+    the flagship's h = 808 at S = 1037, on Ruiz-scaled data.  Matches
+    rollout_plain after 6 steps; a repeated call is bitwise the first."""
+    from iadmm_tpu_torch.scaling import scale_batch
+    ds = generate(fam, num_var=n, num_ineq=mi, num_eq=me, data_size=B,
+                  seed=13)
+    data = scale_batch(to_qp_batch(ds, device=dev))[0]
+    p, _ = _params(7, h)
+    p = {k: v.to(dev) for k, v in p.items()}
+    ref = troll.rollout_plain(p, data, hidden=h, K=6)
+    before = troll.fused_rollout.launches
+    out = troll.fused_rollout(p, data, hidden=h, K=6)
+    again = troll.fused_rollout(p, data, hidden=h, K=6)
+    assert troll.fused_rollout.launches == before + 12
+    for a, a2, b in zip(out, again, ref):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, b, rtol=2e-2,
+                                   atol=2e-2 * float(b.abs().max()))
+
+
 def test_rollout_calls_independent(dev):
     """A rollout call does not depend on the calls before it: shape A, then
     shape B (another batch, n, m and h), then A at another K and sigma, then
