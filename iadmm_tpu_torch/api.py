@@ -15,8 +15,8 @@ import torch
 
 from .types import QPBatch, IterState, init_state
 from .scaling import scale_batch
-from .solvers.step import (get_cell, make_lstm_step, _schedules,
-                           check_schedule_len)
+from .solvers.step import (get_cell, make_lstm_step, rho_vector,
+                           schedule_rho, check_schedule_len)
 from .solvers.rollouts import rollout, unscale_state
 from .solvers import exact as exact_mod
 from .evaluation import metrics
@@ -77,6 +77,12 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
     its result (one device synchronisation a span).  Under a profiler
     each span ends with a device synchronisation; with neither, the spans
     do nothing.
+
+    ``params`` are read when the solver is built, as the JAX reference
+    closes over immutable arrays: the fused rollout's weights
+    (:func:`~iadmm_tpu_torch.kernels.rollout_kernel.prepare_rollout`) and
+    Stage II's ρ are prepared here, once per solver, so a change made to
+    ``params`` in place afterwards does not reach them.
     """
     if stage2_impl not in _STAGE2_IMPLS:
         raise ValueError(f"unknown stage2_impl {stage2_impl!r}")
@@ -90,6 +96,12 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
     else:
         step_fn = get_cell(model_name).step
     hc_dtype = torch.bfloat16 if gate_dtype == "bfloat16" else torch.float32
+    with torch.no_grad():
+        if rollout_impl == "fused":
+            from .kernels.rollout_kernel import prepare_rollout
+            weights = prepare_rollout(params, hidden=hidden_dim, K=num_iters)
+        if feas_rest_num:
+            rho_last = schedule_rho(params, num_iters - 1)
 
     @torch.no_grad()
     def solve(data: QPBatch) -> SolveResult:
@@ -125,7 +137,7 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
         B, dev = data.batch, data.device
         if rollout_impl == "fused":
             from .kernels.rollout_kernel import fused_rollout
-            x, y, z = fused_rollout(params, scaled, hidden=hidden_dim,
+            x, y, z = fused_rollout(weights, scaled, hidden=hidden_dim,
                                     K=num_iters, sigma=sigma)
             return IterState(x=x, y=y, z=z, xv=torch.cat([x, y], -1),
                              H=torch.zeros((B, 1, 1), dtype=hc_dtype,
@@ -137,7 +149,7 @@ def make_solver(params: Dict, *, hidden_dim: int, num_iters: int,
         return rollout(step_fn, params, st, scaled, sigma, num_iters)
 
     def _stage2(st, data):
-        rho_vec, _ = _schedules(params, num_iters - 1, data.eq_mask)
+        rho_vec = rho_vector(rho_last, data.eq_mask)
         impl = stage2_impl
         if impl == "auto":
             impl = "fused" if data.p.is_cuda else "lu"

@@ -28,8 +28,8 @@
 // (82 GFLOP at B = 8, h = 800: 83 µs at 989 TFLOP/s); the two KKT passes
 // read 2 x 4 MB of bf16 data per instance and step at n = m = 1000
 // (kkt_matvec.cuh), which the L2 serves there.  U is re-laid for the
-// rollout's cell tile (Ut, HB_ROLLOUT units a tile) once per rollout, by
-// the wrapper.
+// rollout's cell tile (Ut, HB_ROLLOUT units a tile) on the host, once per
+// serving solver (rollout_kernel.prepare_rollout).
 //
 // Numerics follow the TPU kernel: every vector is rounded to bf16 before
 // each matvec (rollout_kernel.py:78-91); the x·W term is float32 xv and g

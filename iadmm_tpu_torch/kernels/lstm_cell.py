@@ -21,7 +21,7 @@ the plain version; on CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -38,19 +38,6 @@ def cell_plain(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
     params = dict(W=W, U=U, b=b, W_h=W_h, b_h=b_h)
     gate = "bfloat16" if gate_dtype_name == "bfloat16" else None
     return cells.lstm_apply(params, inputs, H, C, gate_dtype=gate)
-
-
-def check_cell_weights(W, U, b, W_h, b_h, h: int) -> None:
-    """Raise unless the cell weights have the shapes the kernels take for
-    hidden width ``h`` (input width 2)."""
-    want = dict(W=(2, 4 * h), U=(h, 4 * h), b=(4 * h,), W_h=(h, 1),
-                b_h=(1,))
-    got = dict(W=W, U=U, b=b, W_h=W_h, b_h=b_h)
-    bad = {k: tuple(got[k].shape) for k in want
-           if tuple(got[k].shape) != want[k]}
-    if bad:
-        raise ValueError(f"cell weight shapes {bad} do not fit h={h}: "
-                         f"expected {want}")
 
 
 def relaid_u(U: torch.Tensor, h: int,
@@ -79,11 +66,54 @@ def cell_scratch(M: int, h: int, dev) -> torch.Tensor:
                        device=dev)
 
 
+class CellOperands(NamedTuple):
+    """The cell weights as the kernels read them (:func:`cell_operands`)."""
+    W: torch.Tensor    # (2, 4h), gate dtype
+    U: torch.Tensor    # (h, 4h), gate dtype, 16-byte aligned
+    Ut: torch.Tensor   # what the cell GEMM reads for U
+    b: torch.Tensor    # (4h,) float32
+    W_h: torch.Tensor  # (h,), gate dtype
+    b_h: torch.Tensor  # (1,) float32
+
+
+def cell_operands(W, U, b, W_h, b_h, *, h: int, gate_dtype: str,
+                  hb: int = _build.CELL_HB["bfloat16"],
+                  backward: bool = False) -> CellOperands:
+    """The cell weights (input width 2, hidden width ``h``) as every cell
+    kernel takes them at gate dtype ``gate_dtype`` (this module's, the
+    serving rollout's, the training pair's): the one place that decides
+    their casts and layout.  Ut is U re-laid (:func:`relaid_u`) for
+    a bf16 tile of ``hb`` units (the rollout's is ``_build.ROLLOUT_HB``);
+    for float32 it is U itself, or Uᵀ for the ``backward``, whose float32
+    dH reads U along its rows.  Raises ValueError unless the weights fit
+    ``h`` and share one device."""
+    if gate_dtype not in _GATE_DTYPES:
+        raise ValueError(f"unknown gate dtype {gate_dtype!r}; the "
+                         f"cell kernel takes {sorted(_GATE_DTYPES)}")
+    want = dict(W=(2, 4 * h), U=(h, 4 * h), b=(4 * h,), W_h=(h, 1),
+                b_h=(1,))
+    got = dict(W=W, U=U, b=b, W_h=W_h, b_h=b_h)
+    bad = {k: tuple(got[k].shape) for k in want
+           if tuple(got[k].shape) != want[k]}
+    if bad:
+        raise ValueError(f"cell weight shapes {bad} do not fit h={h}: "
+                         f"expected {want}")
+    if any(t.device != W.device for t in (U, b, W_h, b_h)):
+        raise ValueError("all cell tensors must be on one device")
+    wdt, f32 = _GATE_DTYPES[gate_dtype], torch.float32
+    Uc = _build.aligned(U.to(wdt))
+    if wdt != f32:
+        Ut = relaid_u(Uc, h, hb)
+    else:
+        Ut = Uc.t().contiguous() if backward else Uc
+    return CellOperands(W.to(wdt).contiguous(), Uc, Ut,
+                        b.to(f32).contiguous(),
+                        W_h.reshape(-1).to(wdt).contiguous(),
+                        b_h.reshape(-1).to(f32).contiguous())
+
+
 def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
     """The kernel on CUDA tensors; same contract as :func:`cell_plain`."""
-    if gate_dtype_name not in _GATE_DTYPES:
-        raise ValueError(f"unknown gate dtype {gate_dtype_name!r}; the "
-                         f"cell kernel takes {sorted(_GATE_DTYPES)}")
     if H.dtype not in _STATE_DTYPES or C.dtype not in _STATE_DTYPES:
         raise TypeError(f"H/C dtypes {H.dtype}/{C.dtype} not in "
                         f"{_STATE_DTYPES}")
@@ -92,38 +122,28 @@ def cell_cuda(W, U, b, W_h, b_h, inputs, H, C, gate_dtype_name: str):
     if in_dim != 2 or H.shape != (B, S, h) or C.shape != (B, S, h):
         raise ValueError(f"bad cell shapes: inputs {tuple(inputs.shape)}, "
                          f"H {tuple(H.shape)}, C {tuple(C.shape)}")
-    check_cell_weights(W, U, b, W_h, b_h, h)
+    ops = cell_operands(W, U, b, W_h, b_h, h=h, gate_dtype=gate_dtype_name)
     dev = H.device
-    for t in (inputs, C, W, U, b, W_h, b_h):
-        if t.device != dev:
-            raise ValueError("all cell tensors must be on one device")
+    if any(t.device != dev for t in (inputs, C, ops.W)):
+        raise ValueError("all cell tensors must be on one device")
     M = B * S
     bf, f32 = torch.bfloat16, torch.float32
-    wdt = _GATE_DTYPES[gate_dtype_name]
     x = inputs.to(f32).contiguous()
     Hc, Cc = _build.aligned(H), C.contiguous()
-    Wc = W.to(wdt).contiguous()
-    Uc = _build.aligned(U.to(wdt))
-    # the bf16 GEMM reads U re-laid (one pass over 5 MB at h = 800), the
-    # float32 one U itself
-    Ut = Uc if wdt == f32 else relaid_u(Uc, h)
-    bb = b.to(f32).contiguous()
-    Whc = W_h.reshape(-1).to(wdt).contiguous()
-    bhb = b_h.reshape(-1).to(f32).contiguous()
     H_out = torch.empty_like(Hc)
     C_out = torch.empty_like(Cc)
     partial = cell_scratch(M, h, dev)
     delta = torch.empty((B, S), dtype=f32, device=dev)
     fn = _build.function("lstm_cell", "iadmm_cell_forward",
                          [_build.P] * 12 + [_build.I] * 5 + [_build.P])
-    code = fn(x.data_ptr(), Hc.data_ptr(), Cc.data_ptr(), Wc.data_ptr(),
-              Ut.data_ptr(), bb.data_ptr(), Whc.data_ptr(),
-              bhb.data_ptr(), H_out.data_ptr(), C_out.data_ptr(),
+    code = fn(x.data_ptr(), Hc.data_ptr(), Cc.data_ptr(), ops.W.data_ptr(),
+              ops.Ut.data_ptr(), ops.b.data_ptr(), ops.W_h.data_ptr(),
+              ops.b_h.data_ptr(), H_out.data_ptr(), C_out.data_ptr(),
               partial.data_ptr(), delta.data_ptr(), M, h,
-              int(H.dtype == bf), int(C.dtype == bf), int(wdt == f32),
+              int(H.dtype == bf), int(C.dtype == bf), int(ops.W.dtype == f32),
               _build.stream_ptr(dev))
     _build.check(code, "iadmm_cell_forward")
-    if wdt == f32:
+    if ops.W.dtype == f32:
         fused_lstm_cell.launches_f32 += 1
     else:
         fused_lstm_cell.launches += 1

@@ -413,8 +413,9 @@ def stage2_cuda(state: IterState, data: QPBatch, rho: torch.Tensor,
                 Ainv: torch.Tensor, *, num_iters: int, sigma: float,
                 refine: int):
     """The 'kkt' kernel's N polish steps on CUDA tensors; same contract as
-    :func:`stage2_plain`.  The kernel reads Ã⁻¹ by rows: an operand that is
-    not row-major (``torch.linalg.inv``'s own result) is copied first."""
+    :func:`stage2_plain`.  The kernel reads Ã⁻¹ by rows; on CUDA data
+    ``fused_stage2`` passes :func:`kkt_inverse_cuda`'s output, which is
+    row-major already."""
     dev = data.p.device
     B, n = data.p.shape
     m = data.num_constr

@@ -65,8 +65,7 @@ import torch
 from ..solvers.step import rho_vector
 from ..types import IterState, QPBatch
 from . import _build
-from .lstm_cell import (CELL_KEYS, cell_scratch, check_cell_weights,
-                        relaid_u)
+from .lstm_cell import CELL_KEYS, cell_operands, cell_scratch
 
 _GRAD_KEYS = CELL_KEYS + ("rho", "alpha")
 _COMPUTE_DTYPES = ("bfloat16", "float32")
@@ -379,7 +378,13 @@ _GEMM_ARGS = ([_build.I] * 3 + [_build.P, _build.I] * 3 + [_build.I] * 3
               + [_build.P])
 
 
-def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
+def _cuda_operands(weights, state, data, compute_dtype, J, t0,
+                   backward=False):
+    """Check a chunk's inputs; return (B, n, m, h) and the kernel operands:
+    Q and A0 in the compute dtype, float32 vectors (p, zl, zu, rhom, rho,
+    alpha), all contiguous, then the cell weights as
+    :func:`lstm_cell.cell_operands` makes them (W, Ut, b, W_h, b_h); the
+    ``backward`` also reads U (dH = dpre·Uᵀ) and takes it before Ut."""
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     if J < 1:
@@ -388,7 +393,6 @@ def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
     B, n = x.shape
     m = y.shape[1]
     S, h = n + m, H.shape[-1]
-    check_cell_weights(*weights[:5], h)
     want = dict(x=(B, n), y=(B, m), z=(B, m), xv=(B, S), H=(B, S, h),
                 C=(B, S, h), Q=(B, n, n), A0=(B, m, n), p=(B, n),
                 zl=(B, m), zu=(B, m), rhom=(B, m))
@@ -407,7 +411,13 @@ def _check_cuda_inputs(weights, state, data, compute_dtype, J, t0):
     for t in (*weights, *state, *data):
         if t.device != dev:
             raise ValueError("all training tensors must be on one device")
-    return B, n, m, h
+    cw = cell_operands(*weights[:5], h=h, gate_dtype=compute_dtype,
+                       backward=backward)
+    return (B, n, m, h), (
+        [_build.aligned(t.to(_CDT[compute_dtype])) for t in data[:2]]
+        + [t.to(torch.float32).contiguous()
+           for t in (*data[2:], *weights[5:])]
+        + [cw.W, *([cw.U] if backward else []), cw.Ut, cw.b, cw.W_h, cw.b_h])
 
 
 def _check_float32(named, shapes):
@@ -417,28 +427,6 @@ def _check_float32(named, shapes):
                 or tuple(t.shape) != tuple(shape)):
             raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)}, expected a "
                              f"contiguous float32 {tuple(shape)}")
-
-
-def _prep_cuda(weights, data, compute_dtype, backward=False):
-    """Kernel operands: matrices and cell weights in the compute dtype,
-    float32 vectors, all contiguous.  The cell GEMM reads Ut, U re-laid
-    (:func:`lstm_cell.relaid_u`) for bf16 and U itself for float32; the
-    ``backward`` also reads U (dH = dpre·Uᵀ) and takes it before Ut, which
-    is Uᵀ there for float32 (the float32 dH reads it along its rows)."""
-    cdt, f32 = _CDT[compute_dtype], torch.float32
-    W, U, b, W_h, b_h, rho, alpha = weights
-    Q, A0, p, zl, zu, rhom = data
-    mats = [_build.aligned(Q.to(cdt)), _build.aligned(A0.to(cdt))]
-    vecs = [t.to(f32).contiguous() for t in (p, zl, zu, rhom, rho, alpha)]
-    Uc = _build.aligned(U.to(cdt))
-    if cdt != f32:
-        Ut = relaid_u(Uc, Uc.shape[0])
-    else:
-        Ut = Uc.t().contiguous() if backward else Uc
-    wts = [W.to(cdt).contiguous(), *([Uc] if backward else []), Ut,
-           b.to(f32).contiguous(), W_h.reshape(-1).to(cdt).contiguous(),
-           b_h.reshape(-1).to(f32).contiguous()]
-    return mats + vecs + wts
 
 
 def _carries(state, compute_dtype, slots):
@@ -502,11 +490,10 @@ def train_fwd_cuda(weights, state, data, *, t0: int, J: int, sigma: float,
                    compute_dtype: str = "bfloat16"):
     """The forward kernel on CUDA tensors; same contract as
     :func:`train_fwd_plain` (streams with the same layout)."""
-    B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
-                                    t0)
+    (B, n, m, h), ops = _cuda_operands(weights, state, data, compute_dtype,
+                                       J, t0)
     dev = state[0].device
     f32 = torch.float32
-    ops = _prep_cuda(weights, data, compute_dtype)
     streams = _carries(state, compute_dtype, J + 1)
     H_final = torch.empty((B, n + m, h), dtype=f32, device=dev)
     pr = torch.empty((B, J), dtype=f32, device=dev)
@@ -536,8 +523,8 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
     gradients)."""
     hs, cs, xs, ys, zs, xvs = streams
     state0 = (xs[0], ys[0], zs[0], xvs[0], cs[0], cs[0])
-    B, n, m, h = _check_cuda_inputs(weights, state0, data, compute_dtype, J,
-                                    t0)
+    (B, n, m, h), ops = _cuda_operands(weights, state0, data, compute_dtype,
+                                       J, t0, backward=True)
     S = n + m
     want = {"hs": (_CDT[compute_dtype], (J + 1, B, S, h)),
             "cs": (torch.float32, (J + 1, B, S, h)),
@@ -553,7 +540,6 @@ def train_bwd_cuda(weights, data, streams, dfinal, dpr, ddr, *, t0: int,
                              f"contiguous {dt} {shape}")
     dev = xs.device
     f32 = torch.float32
-    ops = _prep_cuda(weights, data, compute_dtype, backward=True)
     carries = tuple(t.to(f32).contiguous().clone() for t in dfinal)
     dpr = dpr.to(f32).contiguous()
     ddr = ddr.to(f32).contiguous()
@@ -592,8 +578,8 @@ def train_fwd_seg_cuda(weights, state, data, *, t0: int, J: int,
     J − 1) to the next segment's call.  A chunk's segments in order, the
     first with ``pending=False`` and the last with ``close=True``, write
     every column."""
-    B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
-                                    t0)
+    (B, n, m, h), ops = _cuda_operands(weights, state, data, compute_dtype,
+                                       J, t0)
     dev = state[0].device
     f32 = torch.float32
     if losses is None:
@@ -606,7 +592,6 @@ def train_fwd_seg_cuda(weights, state, data, *, t0: int, J: int,
     if pending and col == 0:
         raise ValueError("pending: no column before column 0")
     _check_float32(dict(pr=losses[0], dr=losses[1]), ((B, L), (B, L)))
-    ops = _prep_cuda(weights, data, compute_dtype)
     bufs = _carries(state, compute_dtype, 2)
     H_final = torch.empty((B, n + m, h), dtype=f32, device=dev)
     fn = _build.function("train_fwd", "iadmm_train_fwd_seg", _FWD_SEG_ARGS)
@@ -634,8 +619,8 @@ def train_bwd_seg_cuda(weights, state, data, dfinal, dpr, ddr, *, t0: int,
     :func:`train_bwd_seg_plain`.  ``acc``, where given, holds contiguous
     float32 tensors and is added to in place (the chunk's sums across its
     segments); the cotangents ``dfinal`` are left as they are."""
-    B, n, m, h = _check_cuda_inputs(weights, state, data, compute_dtype, J,
-                                    t0)
+    (B, n, m, h), ops = _cuda_operands(weights, state, data, compute_dtype,
+                                       J, t0, backward=True)
     dev = state[0].device
     f32 = torch.float32
     dpr = dpr.to(f32).contiguous()
@@ -655,7 +640,6 @@ def train_bwd_seg_cuda(weights, state, data, dfinal, dpr, ddr, *, t0: int,
             raise ValueError(f"d{k}: shape {tuple(d.shape)}, expected "
                              f"{tuple(t.shape)}")
     carries = tuple(t.to(f32).contiguous().clone() for t in dfinal)
-    ops = _prep_cuda(weights, data, compute_dtype, backward=True)
     bufs = _carries(state, compute_dtype, J + 1)
     fn = _build.function("train_bwd", "iadmm_train_bwd_seg", _BWD_SEG_ARGS)
     code = fn(t0, col, L, *(t.data_ptr() for t in (

@@ -110,17 +110,21 @@ def admm_update(data: QPBatch, xv_new, x, y, z, rho_vec, alpha,
     return x_new, y_new, z_new
 
 
+def schedule_rho(params: Dict, t: int, device=None) -> torch.Tensor:
+    """The scalar ρ of learned iteration ``t``: σ(rho[t]), or 0.1 (float32,
+    on ``device``) for a cell without a ``rho`` schedule."""
+    if "rho" in params:
+        return torch.sigmoid(params["rho"][t])
+    return torch.tensor(0.1, dtype=torch.float32, device=device)
+
+
 def _schedules(params: Dict, t: int, eq_mask: torch.Tensor,
                fixed_alpha: float = 1.6):
-    """(ρ per row, α) of learned iteration ``t``: ρ = σ(rho[t]) with the
-    equality rows scaled by 1e3, α = 2σ(alpha[t]).  A cell without a
-    ``rho`` schedule takes ρ = 0.1, one without ``alpha`` α = 1.6, both
-    float32 as in the JAX package."""
-    if "rho" in params:
-        rho = torch.sigmoid(params["rho"][t])
-    else:
-        rho = torch.tensor(0.1, dtype=torch.float32, device=eq_mask.device)
-    rho_vec = rho_vector(rho, eq_mask)
+    """(ρ per row, α) of learned iteration ``t``: ρ = :func:`schedule_rho`
+    with the equality rows scaled by 1e3, α = 2σ(alpha[t]).  A cell
+    without an ``alpha`` schedule takes α = 1.6, float32 as in the JAX
+    package."""
+    rho_vec = rho_vector(schedule_rho(params, t, eq_mask.device), eq_mask)
     if "alpha" in params:
         alpha = 2.0 * torch.sigmoid(params["alpha"][t])
     else:

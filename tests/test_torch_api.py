@@ -66,3 +66,54 @@ def test_make_solver_rejects_unported_routes(problem):
         tapi.make_solver(tp, hidden_dim=HID, num_iters=K, stage2_impl="qr")
     with pytest.raises(ValueError, match="test_outer_T"):
         tapi.make_solver(tp, hidden_dim=HID, num_iters=K + 1)
+
+
+FIELDS = ("x", "y", "z", "primal_res", "dual_res", "obj")
+
+
+def test_fused_solver_is_the_rollout_on_the_raw_params(problem):
+    """``make_solver(rollout_impl='fused')`` reads the rollout's weights
+    prepared once, when it is built; its outputs are bitwise those of
+    ``fused_rollout`` on the raw parameter dict followed by the same
+    unscale and Stage II ('fused', the plain twin on the CPU)."""
+    from iadmm_tpu_torch.kernels.rollout_kernel import fused_rollout
+    from iadmm_tpu_torch.kernels.stage2_kernel import fused_stage2
+    from iadmm_tpu_torch.scaling import scale_batch
+    from iadmm_tpu_torch.solvers.rollouts import unscale_state
+    from iadmm_tpu_torch.solvers.step import _schedules
+    from iadmm_tpu_torch.types import IterState
+    _, tdata, _, tp = problem
+    sigma, N = 6e-6, FAST["feas_rest_num"]
+    got = tapi.make_solver(tp, **dict(FAST, hidden_dim=HID, num_iters=K,
+                                      rollout_impl="fused",
+                                      stage2_impl="fused"))(tdata)
+    with torch.no_grad():
+        scaled, sc = scale_batch(tdata, iters=10)
+        x, y, z = fused_rollout(tp, scaled, hidden=HID, K=K, sigma=sigma)
+        zero = torch.zeros((B, 1, 1), dtype=torch.bfloat16)
+        st = unscale_state(IterState(x=x, y=y, z=z,
+                                     xv=torch.cat([x, y], -1), H=zero,
+                                     C=zero), sc)
+        rho_vec, _ = _schedules(tp, K - 1, tdata.eq_mask)
+        st, _, _ = fused_stage2(st, tdata, rho_vec, num_iters=N,
+                                sigma=sigma)
+    for f in ("x", "y", "z"):
+        assert torch.equal(getattr(got, f), getattr(st, f)), f
+
+
+def test_one_solver_serves_batches_with_other_equality_rows(problem):
+    """A solver's weights are prepared once, but Stage II's row
+    multipliers come from each batch's equality rows: one solver serving
+    two batches with different equality rows is bitwise a fresh solver
+    for each."""
+    _, tdata, _, tp = problem
+    ds = generators.generate("QP", num_var=N_VAR, num_ineq=MI + 4,
+                             num_eq=ME - 4, data_size=B, seed=22)
+    other = to_torch(jio.to_qp_batch(ds), dtype=torch.float32)
+    assert not torch.equal(other.eq_mask, tdata.eq_mask)
+    kw = dict(FAST, hidden_dim=HID, num_iters=K, rollout_impl="fused")
+    solve = tapi.make_solver(tp, **kw)
+    for data in (tdata, other, tdata):
+        got, fresh = solve(data), tapi.make_solver(tp, **kw)(data)
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(fresh, f)), f

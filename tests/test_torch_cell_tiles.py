@@ -1,8 +1,9 @@
 """Host-side pieces of the cell GEMM's tiling: the tile constants read from
 ``csrc/cell_gemm.cuh``, the scratch the wrappers allocate for each precision
-profile, and the re-laid U (``lstm_cell.relaid_u``) that the bf16 kernels
+profile, the re-laid U (``lstm_cell.relaid_u``) that the bf16 kernels
 read, at the per-step cell's width and at the serving rollout's wider one,
-held to the plain cell in float64."""
+held to the plain cell in float64, and the cell operands every kernel takes
+(``lstm_cell.cell_operands``, the rollout's ``prepare_rollout``)."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import torch
 
 from iadmm_tpu_torch.kernels import _build
 from iadmm_tpu_torch.kernels import lstm_cell as lc
+from iadmm_tpu_torch.kernels import rollout_kernel as troll
 from iadmm_tpu_torch.kernels import train_rollout as ttr
 
 PROFILES = ("bfloat16", "float32")
@@ -218,3 +220,81 @@ def test_rollout_tile_shared_memory():
             + 2 * ws * hb * 4 + 2 * bm * (hb + 4) * 4 + 4 * 8)
     assert (stages, ws, smem) == (3, 20, 228432)
     assert smem <= 232448
+
+
+def _cell_weights(h, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    shapes = dict(W=(2, 4 * h), U=(h, 4 * h), b=(4 * h,), W_h=(h, 1),
+                  b_h=(1,))
+    return {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("gate", PROFILES)
+@pytest.mark.parametrize("h,hb", [(20, None), (44, None), (212, 64)])
+def test_cell_operands(h, hb, gate, backward):
+    """``cell_operands`` gives, for both gate dtypes, forward and backward,
+    at the per-step cell's tile and the rollout's: W, U and W_h in the gate
+    dtype (W_h flattened), b and b_h in float32, all contiguous, U 16-byte
+    aligned; Ut is U re-laid for the tile (bf16), U itself (float32
+    forward) or Uᵀ (float32 backward), bitwise."""
+    w = _cell_weights(h)
+    wdt = ttr._CDT[gate]
+    kw = dict(hb=hb) if hb else {}
+    ops = lc.cell_operands(*(w[k] for k in lc.CELL_KEYS), h=h,
+                           gate_dtype=gate, backward=backward, **kw)
+    U = w["U"].to(wdt)
+    if gate == "bfloat16":
+        Ut = lc.relaid_u(U, h, hb or _build.CELL_HB["bfloat16"])
+    else:
+        Ut = U.t() if backward else U
+    want = dict(W=w["W"].to(wdt), U=U, Ut=Ut, b=w["b"],
+                W_h=w["W_h"].reshape(-1).to(wdt), b_h=w["b_h"])
+    for k, t in want.items():
+        got = getattr(ops, k)
+        assert got.dtype == t.dtype and got.is_contiguous(), k
+        assert torch.equal(got, t), k
+    assert ops.U.data_ptr() % 16 == 0
+
+
+def test_cell_operands_reject_bad_weights():
+    """A weight of the wrong shape is named; an unknown gate dtype and
+    weights on two devices are refused."""
+    w = _cell_weights(16)
+    for k, bad in (("'U'", w["U"][:, :-4]), ("'b_h'", w["b_h"][:0])):
+        args = dict(w, **{k.strip("'"): bad})
+        with pytest.raises(ValueError, match=k):
+            lc.cell_operands(*(args[c] for c in lc.CELL_KEYS), h=16,
+                             gate_dtype="bfloat16")
+    with pytest.raises(ValueError, match="gate dtype"):
+        lc.cell_operands(*w.values(), h=16, gate_dtype="float16")
+    meta = dict(w, b=w["b"].to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        lc.cell_operands(*(meta[c] for c in lc.CELL_KEYS), h=16,
+                         gate_dtype="float32")
+
+
+def test_prepare_rollout():
+    """The rollout's weights: the bf16 cell operands at the rollout's tile
+    and rho, alpha in float32; prepared weights pass through unchanged
+    where they fit h and K, and are refused where they do not."""
+    h, K = 20, 6
+    params = dict(_cell_weights(h), rho=torch.randn(K).double(),
+                  alpha=torch.randn(K + 2))
+    wts = troll.prepare_rollout(params, hidden=h, K=K)
+    ops = lc.cell_operands(*(params[k] for k in lc.CELL_KEYS), h=h,
+                           gate_dtype="bfloat16", hb=_build.ROLLOUT_HB)
+    for a, b in zip(wts.cell, ops):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for k in ("rho", "alpha"):
+        t = getattr(wts, k)
+        assert t.dtype == torch.float32 and torch.equal(t, params[k].float())
+    assert troll.prepare_rollout(wts, hidden=h, K=K) is wts
+    for kw in (dict(hidden=h + 1, K=K), dict(hidden=h, K=K + 1)):
+        with pytest.raises(ValueError, match="do not fit"):
+            troll.prepare_rollout(wts, **kw)
+    with pytest.raises(ValueError, match="lack"):
+        troll.prepare_rollout({k: params[k] for k in lc.CELL_KEYS},
+                              hidden=h, K=K)
+    with pytest.raises(ValueError, match="rollout needs"):
+        troll.prepare_rollout(params, hidden=h, K=K + 1)

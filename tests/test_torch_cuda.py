@@ -135,6 +135,23 @@ def test_rollout_matches_plain(dev):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
 
 
+def test_rollout_prepared_weights_match_raw(dev):
+    """The rollout on weights prepared once (``prepare_rollout``, as a
+    serving solver holds them) is bitwise the rollout on the raw parameter
+    dict, each call counting its K launches."""
+    data = _qp(dev, B=3, n=37, mi=21, me=20)
+    p, _ = _params(5, 20)
+    p = {k: v.to(dev) for k, v in p.items()}
+    wts = troll.prepare_rollout(p, hidden=20, K=6)
+    before = troll.fused_rollout.launches
+    raw = troll.fused_rollout(p, data, hidden=20, K=6)
+    mid = troll.fused_rollout.launches
+    prep = troll.fused_rollout(wts, data, hidden=20, K=6)
+    assert mid - before == troll.fused_rollout.launches - mid == 6
+    for a, b in zip(raw, prep):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("h,n,mi,me", [(20, 37, 21, 20), (72, 90, 40, 47),
                                         (212, 60, 30, 37)])
 def test_rollout_wide_tile_matches_plain(dev, h, n, mi, me):

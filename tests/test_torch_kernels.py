@@ -110,7 +110,9 @@ def test_cuda_wrappers_reject_bad_shapes():
                          to_torch(H), to_torch(C), "bfloat16")
     _, tdata = _qp(2, 8, 4, 4, 3)
     with pytest.raises(ValueError, match="'b'"):
-        troll._rollout_cuda(dict(tp, b=tp["b"][:-1]), tdata, 16, 2, 6e-6)
+        troll.prepare_rollout(dict(tp, b=tp["b"][:-1]), hidden=16, K=2)
+    with pytest.raises(ValueError, match="'b'"):
+        troll.fused_rollout(dict(tp, b=tp["b"][:-1]), tdata, hidden=16, K=2)
     rho = torch.ones((2, 8))
     state = to_torch(jtypes.init_state(2, 8, 8, 1))
     with pytest.raises(ValueError, match="Ainv"):
