@@ -39,6 +39,14 @@ surface:
       the two ragged shapes that ``--compare`` holds (odd band counts: the
       flagship's 125 and S=1037's 17 leave the last 2-CTA cluster a band
       past the end);
+  (y) Ruiz scaling (csrc/ruiz.cu) at both serving shapes (B=8: the
+      flagship's n=1000, 500 + 500 rows; Random_QP's n=1000, 2000 rows):
+      every output bitwise ``ruiz_kernel.ruiz_plain`` (the plain function
+      with the cost norm's mean in the kernel's order) and a second call,
+      within 1e-5 of max|ref| of the eager ``ruiz_scale_plain`` (and
+      whether bitwise, with whether torch's own CUDA mean sums in the
+      kernel's order), one launch a call; the kernel timed alone beside
+      its bound, the plain version and the eager function;
   (c) Ã⁻¹ from the 'kkt' operand's kernel (csrc/kkt_inverse.cu, B=8,
       S=2000) against float64 torch.linalg.inv and its plain version, two
       calls bitwise equal, timed beside its bound, the plain version and
@@ -191,11 +199,11 @@ surface:
   (u) the BCOO route at ``scripts/run_workload.py``'s Sparse_QP (n=1000,
       500 box rows, h=400, K=100, B=2, test B=10, bf16 matvecs):
       ``cli.train`` (one epoch) and ``cli.test``, twice, bitwise equal,
-      no kernel launched; ``run_test`` on the BSR route (float32 tiles:
-      the first 6 steps to 1e-3, K=100 to 4x the BCOO route's own
-      permuted gap; bf16 tiles: 1e-2); each BCOO matvec's device time
-      beside the BSR kernel's; the device's busy share of a chunk update
-      and of a test rollout;
+      no kernel launched but Ruiz scaling's; ``run_test`` on the BSR
+      route (float32 tiles: the first 6 steps to 1e-3, K=100 to 4x the
+      BCOO route's own permuted gap; bf16 tiles: 1e-2); each BCOO
+      matvec's device time beside the BSR kernel's; the device's busy
+      share of a chunk update and of a test rollout;
   (v) the distribution routes (``iadmm_tpu_torch.dist``), each rank a
       process of this script (``--dist-worker``) under DIST_TIMEOUT_S (a
       rank that fails or runs out of time fails the run): a world of one
@@ -258,7 +266,8 @@ move a result): the bf16-gate cell at six shapes and the float32-gate
 cell at five (the flagship shape with both state dtypes, ragged ones), the
 serving rollout's (x, y, z) at B=8 (K=6 and K=100), at B=2 on two
 ragged shapes (S = 1037 with h = 808; h = 212) and at the Random_QP
-serving shape (B=8, n=1000, m=2000, h=200; K=6 and K=100), a J=6 bf16
+serving shape (B=8, n=1000, m=2000, h=200; K=6 and K=100), Ruiz
+scaling's eight outputs (``scale_batch``) at both serving shapes, a J=6 bf16
 training forward at B=2, the float32 stream pair and segment
 pair (segments of 2) at J=6 with every gradient and start-state
 cotangent, the J=100 forward at B=2 at both profiles, one bf16 segment
@@ -292,6 +301,10 @@ and row 8 with the BSR route alone, the same way:
 
     python3 chip_smoke.py --time-rollout a.json
     python3 chip_smoke.py --time-bsr a.json
+
+Phase (y) alone (Ruiz scaling; its report as JSON):
+
+    python3 chip_smoke.py --ruiz a.json
 
 Phase (v)'s routes on N cards, one rank a card, over NCCL (each rank's
 gaps to its own one-process runs, by (v)'s rules; exit 1 if any fails):
@@ -475,19 +488,24 @@ def qp_batch(B, seed, n=N_VAR, mi=N_INEQ, me=N_EQ):
     return to_qp_batch(ds, device=DEV)
 
 
+def rqp_batch(B=SERVE_BATCH, seed=1):
+    """B unscaled instances of the Random_QP serving shape."""
+    from iadmm_tpu_torch.problems import generate, to_qp_batch
+    ds = generate("Random_QP", num_var=RQP_N, num_ineq=RQP_M, data_size=B,
+                  seed=seed)
+    return to_qp_batch(ds, device=DEV)
+
+
 def rqp_inputs(B=SERVE_BATCH, seed=1):
     """(params, Ruiz-scaled batch) of the Random_QP serving shape: the
     weights of seed 0 at h = RQP_H with W_h at RQP_WH, B instances."""
     import torch
-    from iadmm_tpu_torch.problems import generate, to_qp_batch
     from iadmm_tpu_torch.scaling import scale_batch
     from iadmm_tpu_torch.solvers.cells import lstm_init
     params = lstm_init(torch.Generator().manual_seed(0), 2, RQP_H, K_ITERS,
                        device=DEV)
     params["W_h"] = params["W_h"] * RQP_WH
-    ds = generate("Random_QP", num_var=RQP_N, num_ineq=RQP_M, data_size=B,
-                  seed=seed)
-    return params, scale_batch(to_qp_batch(ds, device=DEV))[0]
+    return params, scale_batch(rqp_batch(B, seed))[0]
 
 
 def cell_us_a_step(params, data, h, K=K_ITERS):
@@ -979,6 +997,92 @@ def phase_stage2(params, data, sc, xyz, report):
     report["stage2"] = row
 
 
+RUIZ_TOL = 1e-5   # of max|ref|, against the eager mean's summation order
+
+
+def ruiz_row(name, data):
+    """Phase (y) at one batch: see ``phase_ruiz``."""
+    import torch
+    from iadmm_tpu_torch.kernels import bounds, ruiz_kernel as rk
+    from iadmm_tpu_torch.scaling.ruiz import ruiz_scale, ruiz_scale_plain
+    args = (data.Q, data.p, data.A0, data.zl, data.zu)
+    B, n = data.p.shape
+    m = data.num_constr
+
+    def outs(r):
+        return (*r[:5], r[5].d, r[5].e, r[5].cost)
+    before = rk.ruiz_scale_cuda.launches
+    got = outs(ruiz_scale(*args))
+    again = outs(rk.ruiz_scale_cuda(*args))
+    torch.cuda.synchronize()
+    if rk.ruiz_scale_cuda.launches != before + 2:
+        raise PhaseError(f"ruiz {name}: not one launch a call")
+    plain = outs(rk.ruiz_plain(*args))
+    eager = outs(ruiz_scale_plain(*args))
+    names = ("Q", "p", "A0", "zl", "zu", "d", "e", "cost")
+    gaps, eq_eager = {}, {}
+    for k, a, a2, b, c in zip(names, got, again, plain, eager):
+        if not torch.equal(a, a2):
+            raise PhaseError(f"ruiz {name}: two calls differ in {k}")
+        if not torch.equal(a, b):
+            raise PhaseError(f"ruiz {name}: {k} is not its plain version's")
+        fin = torch.isfinite(c)
+        if not torch.equal(a[~fin], c[~fin]):
+            raise PhaseError(f"ruiz {name}: {k}'s infinite entries moved")
+        gaps[k] = float((a[fin] - c[fin]).abs().max()
+                        / c[fin].abs().max().clamp_min(1e-30))
+        eq_eager[k] = bool(torch.equal(a, c))
+        if gaps[k] > RUIZ_TOL:
+            raise PhaseError(f"ruiz {name}: {k} {gaps[k]:.3e} from the "
+                             f"eager function")
+    cols = data.Q.abs().amax(dim=-2)
+    torch_mean_in_kernel_order = bool(torch.equal(
+        cols.mean(dim=-1), rk.kernel_order_mean(cols)))
+    plan = rk.ruiz_plan(B, n, m, data.p.device)
+    by_kernel, _ = device_time_by_kernel(lambda: rk.ruiz_scale_cuda(*args))
+    k_ms = cuda_ms(lambda: rk.ruiz_scale_cuda(*args), reps=20, warmup=3)
+    q_ms = queued_ms(lambda: rk.ruiz_scale_cuda(*args), reps=20)
+    p_ms, _ = warm_ms(lambda: rk.ruiz_plain(*args))
+    lib_ms, _ = warm_ms(lambda: ruiz_scale_plain(*args))
+    b_ms, b_by = bounds.ruiz(B, n, m)
+    row = dict(shape=dict(B=B, n=n, m=m), plan=plan._asdict(),
+               max_abs_err=max(float((a - c)[torch.isfinite(c)].abs().max())
+                               for a, c in zip(got, eager)),
+               max_rel_gap_to_eager=gaps, bitwise_eager=eq_eager,
+               torch_mean_in_kernel_order=torch_mean_in_kernel_order,
+               bitwise_plain=True, bitwise_repeat=True,
+               tol=f"bitwise ruiz_plain; {RUIZ_TOL:g} of max|eager|",
+               kernel_ms=k_ms, queued_ms=q_ms,
+               device_ms_by_kernel=by_kernel, plain_ms=p_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               library_note="the eager ruiz_scale_plain on the card")
+    say(f"y ruiz {name}", **row)
+    return row
+
+
+def phase_ruiz(report):
+    """(y) Ruiz scaling (csrc/ruiz.cu) at both serving shapes, B=8: every
+    output bitwise ``ruiz_plain`` (the cost norm's mean in the kernel's
+    order) and a second call, within RUIZ_TOL of max|ref| of the eager
+    function (whether bitwise is reported, with whether torch's CUDA mean
+    sums in the kernel's order), one launch a call; timed (events back to
+    back, and queued behind a sleep) beside its bound, the plain version
+    and the eager function."""
+    qp = ruiz_row("QP", qp_batch(SERVE_BATCH, seed=1))
+    report["ruiz"] = dict(qp, random_qp=ruiz_row("Random_QP", rqp_batch()))
+
+
+def time_ruiz(path):
+    """Phase (y) alone; its report as JSON in ``path``."""
+    from iadmm_tpu_torch.kernels import _build
+    _build.build_all()
+    report = {}
+    phase_ruiz(report)
+    with open(path, "w") as f:
+        json.dump(report["ruiz"], f, indent=1)
+    return 0
+
+
 def kkt_inverse_row(data, rho, report):
     """(c) Ã⁻¹ from csrc/kkt_inverse.cu at the serving shape: against the
     float64 ``torch.linalg.inv`` of the same Ã (its max error over
@@ -1043,9 +1147,10 @@ def kkt_inverse_row(data, rho, report):
 def _counted():
     """{name: (wrapper, attribute)} of every launch counter."""
     from iadmm_tpu_torch.kernels import lstm_cell, rollout_kernel, \
-        sparse_matvec, stage2_kernel, train_rollout as tr
+        ruiz_kernel, sparse_matvec, stage2_kernel, train_rollout as tr
     cell = lstm_cell.fused_lstm_cell
     return dict(cell=(cell, "launches"), cell_f32=(cell, "launches_f32"),
+                ruiz=(ruiz_kernel.ruiz_scale_cuda, "launches"),
                 rollout=(rollout_kernel.fused_rollout, "launches"),
                 stage2=(stage2_kernel.fused_stage2, "launches"),
                 kkt_inverse=(stage2_kernel.kkt_inverse, "launches"),
@@ -3569,10 +3674,11 @@ def phase_canonical(report):
             raise PhaseError(f"r: {k} launched {launches[k]} steps, "
                              f"expected {chunks} chunks x "
                              f"{cfg.truncated_length}")
-    if launches["cell"] <= 0:
-        raise PhaseError("r: the step route did not launch the cell kernel")
+    for k in ("cell", "ruiz"):
+        if launches[k] <= 0:
+            raise PhaseError(f"r: the {k} kernel was not launched")
     for k, v in launches.items():
-        if v and k not in ("cell", "train_fwd", "train_bwd"):
+        if v and k not in ("cell", "train_fwd", "train_bwd", "ruiz"):
             raise PhaseError(f"r: the bf16 profile launched {k}")
     for (backend, preload), r in runs.items():
         want = None if preload == "never" else (backend == "step")
@@ -4016,7 +4122,8 @@ def bcoo_matvec_times(ds):
 def phase_bcoo(report):
     """(u): Sparse_QP (n=1000, 500 box rows, h=400, K=100, bf16 matvecs) on
     the BCOO route through the CLIs: ``cli.train`` (one epoch, twice) and
-    ``cli.test`` (twice), each pair bitwise equal, no kernel launched; the
+    ``cli.test`` (twice), each pair bitwise equal, no kernel launched but
+    Ruiz scaling's (``csrc/ruiz.cu``, every CUDA route's data layer); the
     BCOO traces against ``run_test`` on the BSR route with float32 tiles
     (the same values, sums in another order) and with bf16 tiles; the
     BCOO matvec times beside the BSR kernel's; the device's busy share of a
@@ -4085,8 +4192,10 @@ def phase_bcoo(report):
             timing_line=next((ln.strip() for ln in test_text.splitlines()
                               if "Parallel Time" in ln), None)))
     launches = launch_counts()
-    if any(launches.values()):
-        raise PhaseError(f"u: the BCOO route launched kernels {launches}")
+    if any(v for k, v in launches.items() if k != "ruiz") \
+            or not launches["ruiz"]:
+        raise PhaseError(f"u: the BCOO route launched kernels {launches}, "
+                         f"not Ruiz scaling's alone")
     if not runs[0]["cache_line"] or "(bcoo" not in runs[0]["cache_line"]:
         raise PhaseError(f"u: no BCOO train cache: {runs[0]['cache_line']}")
     a, b = runs
@@ -5239,6 +5348,14 @@ def snapshot(path):
         keys, x, H, C = cell_case(params, B, S, h, hc, g)
         out[f"cell f32 B={B} S={S} h={h} {hc}"] = lc.cell_forward(
             *keys, x, H, C, "float32")
+    # Ruiz scaling's outputs at both serving shapes
+    for name, raw in (("QP", qp_batch(SERVE_BATCH, seed=1)),
+                      ("Random_QP", rqp_batch())):
+        sc_data, st = scale_batch(raw)
+        out[f"scale_batch {name} B={SERVE_BATCH}"] = (
+            sc_data.Q, sc_data.p, sc_data.A0, sc_data.zl, sc_data.zu, st.d,
+            st.e, st.cost)
+    del raw, sc_data
     # the serving rollout's own (x, y, z): the flagship batch at K=6 and
     # K=100, and its two ragged shapes (S = 1037 with h = 808; h = 212)
     scaled, _ = scale_batch(qp_batch(SERVE_BATCH, seed=1))
@@ -5672,11 +5789,12 @@ def main(argv=()) -> int:
     if argv:
         modes = {"--snapshot": snapshot, "--time-rows": time_rows,
                  "--time-rollout": time_rollout, "--time-bsr": time_bsr,
-                 "--cards": dist_cards}
+                 "--ruiz": time_ruiz, "--cards": dist_cards}
         if argv[0] not in modes or len(argv) != 2:
             print("usage: chip_smoke.py [--snapshot OUT | --compare A B | "
                   "--time-rows OUT | --time-rollout OUT | --time-bsr OUT | "
-                  "--cards OUT (under torchrun)]", file=sys.stderr)
+                  "--ruiz OUT | --cards OUT (under torchrun)]",
+                  file=sys.stderr)
             return 2
         return modes[argv[0]](argv[1])
     say("setup", torch=torch.__version__, cuda=torch.version.cuda,
@@ -5706,22 +5824,25 @@ def main(argv=()) -> int:
     _, sc, xyz = phase_rollout(params, data_b, report)
     phase_determinism(report)                                        # (w)
     phase_stage2(params, data_b, sc, xyz, report)
+    phase_ruiz(report)                                               # (y)
     small_reference_check()
 
     requests = [qp_batch(SERVE_BATCH, seed=100 + r) for r in range(3)]
     fast = dict(sigma=SIGMA, use_pallas=True, gate_dtype="bfloat16",
                 matvec_mode="bf16", stage2_impl="fused")
     d = phase_serve("d serve fused", params, requests, report,
-                    ("stage2", "kkt_inverse", "rollout"),
+                    ("stage2", "kkt_inverse", "rollout", "ruiz"),
                     rollout_impl="fused", **fast)
     report["breakdown"] = serve_breakdown(params, requests[1])
     e = phase_serve("e serve step", params, requests, report,
-                    ("stage2", "kkt_inverse", "cell"), rollout_impl="step",
+                    ("stage2", "kkt_inverse", "cell", "ruiz"),
+                    rollout_impl="step",
                     **fast)
     # Main path: the requests of (d) and (e), each counted from 0 just
     # before and read just after; reference solves come after the reading.
-    cell_all, roll_all, s2_all, kinv_all = (
-        d[k] + e[k] for k in ("cell", "rollout", "stage2", "kkt_inverse"))
+    cell_all, roll_all, s2_all, kinv_all, ruiz_all = (
+        d[k] + e[k] for k in ("cell", "rollout", "stage2", "kkt_inverse",
+                              "ruiz"))
     say("main path launches", fused=d, step=e)
 
     data_t = qp_batch(TRAIN_BATCH, seed=2)
@@ -5788,6 +5909,7 @@ def main(argv=()) -> int:
     # The canonical QP workload through the CLIs, its data layer included
     r, canon = phase_canonical(report)                               # (r)
     cell_all += r["cell"]
+    ruiz_all += r["ruiz"]
     say("canonical workload path launches",
         **{k: v for k, v in r.items() if v})
 
@@ -5875,6 +5997,9 @@ def main(argv=()) -> int:
               "none: the JAX package's jnp.linalg.inv at "
               "iadmm_tpu/kernels/stage2_kernel.py:267", "kkt_inverse",
               kinv_all),
+        entry("ruiz", "iadmm_tpu_torch/kernels/csrc/ruiz.cu",
+              "none: Ruiz is XLA's in the JAX package "
+              "(iadmm_tpu/scaling/ruiz.py)", "ruiz", ruiz_all),
         *train_entries("", "train_kernels",
                        {k: g[k] + r[k] + v[k] for k in g}),
         dict(name="bsr_matvec", route="cuda",

@@ -9,7 +9,8 @@ inputs of its run with :func:`cell`, :func:`train_fwd`, :func:`train_bwd`,
 float32 profile), :func:`stage2` (each solver), :func:`kkt_inverse` (its 'kkt' operand),
 :func:`bsr_matvec`,
 :func:`bsr_matvec_group`,
-:func:`kkt_pass` (the KKT pass those kernels run, alone) and ``bound_ms``.
+:func:`kkt_pass` (the KKT pass those kernels run, alone), :func:`ruiz` (Ruiz
+scaling) and ``bound_ms``.
 
 A bound is the larger of two times: the bytes the work must move (each
 input read once, each output written once) over the memory rate, and its
@@ -187,6 +188,16 @@ def kkt_pass(B, n, m, dtype="bfloat16", nv=1):
               + nv * B * 4 * ((n + m) + chunks * n + m))
     return bound_ms(nbytes, f32_ops=nv * B * (2.0 * (n + m) * n
                                               + 2.0 * m * n))
+
+
+def ruiz(B, n, m, iters=10):
+    """Bound of Ruiz scaling (``csrc/ruiz.cu``) over B instances, float32
+    (``qpbench/counts/ruiz.py``'s arithmetic): Q and A0 read once and
+    written once, the vectors read and the factors written; about 6
+    elementwise operations an element a sweep."""
+    elems = B * (n * n + m * n)
+    return bound_ms(8 * elems + 4 * B * 6 * (n + m),
+                    f32_ops=iters * 6.0 * elems)
 
 
 def stored_tiles(vals) -> int:

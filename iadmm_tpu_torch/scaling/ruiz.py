@@ -7,6 +7,10 @@ Counterpart of ``iadmm_tpu/scaling/ruiz.py``, with the same numerics:
   * per-sweep cost normalisation by max(mean column norm of Q, ‖p‖_inf).
 
 The factors are kept as vectors ``d (B,n)``, ``e (B,m)``, ``cost (B,)``.
+
+CUDA tensors go through one launch of ``kernels/csrc/ruiz.cu``
+(``kernels/ruiz_kernel.py``); every other tensor through the plain
+function, :func:`ruiz_scale_plain`.
 """
 
 from __future__ import annotations
@@ -31,7 +35,19 @@ def ruiz_scale(Q, p, A0, zl, zu, iters: int = 10):
     """Scale (Q, p, A0, zl, zu); return scaled data + ScalingState.
 
     Shapes: Q (B,n,n), p (B,n), A0 (B,m,n), zl/zu (B,m).  ±inf bounds stay
-    infinite under the positive row factors."""
+    infinite under the positive row factors.  CUDA data: the kernel
+    (float32 only; ``ruiz_kernel.ruiz_scale_cuda``); else
+    :func:`ruiz_scale_plain`."""
+    if Q.is_cuda:
+        from ..kernels.ruiz_kernel import ruiz_scale_cuda
+        return ruiz_scale_cuda(Q, p, A0, zl, zu, iters=iters)
+    return ruiz_scale_plain(Q, p, A0, zl, zu, iters=iters)
+
+
+def ruiz_scale_plain(Q, p, A0, zl, zu, iters: int = 10, col_mean=None):
+    """The plain function of :func:`ruiz_scale`, on any device.
+    ``col_mean``: the mean over the last dimension in the cost norm (None:
+    ``torch.mean``)."""
     B, n = p.shape
     m = A0.shape[-2]
     kw = dict(dtype=Q.dtype, device=Q.device)
@@ -57,7 +73,9 @@ def ruiz_scale(Q, p, A0, zl, zu, iters: int = 10):
         d = dt * d
         e = et * e
 
-        norm_q_mean = Q.abs().amax(dim=-2).mean(dim=-1)
+        q_cols = Q.abs().amax(dim=-2)
+        norm_q_mean = (q_cols.mean(dim=-1) if col_mean is None
+                       else col_mean(q_cols))
         inf_norm_p = _limit_scaling(p.abs().amax(dim=-1))
         scale_cost = _limit_scaling(torch.maximum(inf_norm_p, norm_q_mean))
         c_temp = 1.0 / scale_cost

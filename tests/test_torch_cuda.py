@@ -880,3 +880,108 @@ def test_segment_route_through_the_chunk_loss(no_tf32, cdt):
     for f in ("x", "y", "z", "xv", "H", "C"):
         assert torch.equal(getattr(so, f), getattr(ro, f)), f
     assert all(torch.equal(sg[k], rg[k]) for k in rg)
+
+
+# ---- Ruiz scaling (csrc/ruiz.cu) ------------------------------------------
+
+# (family, B, n, inequality rows, equality rows): both serving shapes at
+# B=8 (the flagship's −inf lower bounds and equality rows; Random_QP's
+# two-sided rows), B=1, n not a multiple of the kernel's float4 chunks (37,
+# 1001), and an instance too large for the shared memory of every SM
+# together (its rows kept in the outputs).
+RUIZ_SHAPES = [("QP", 8, 1000, 500, 500), ("Random_QP", 8, 1000, 2000, 0),
+               ("QP", 1, 1000, 500, 500), ("QP", 3, 37, 21, 20),
+               ("QP", 2, 1001, 300, 200), ("Random_QP", 1, 4096, 1024, 0)]
+RUIZ_TOL = 1e-5   # of max|ref|: the eager mean summed in another order
+
+
+def _ruiz_args(dev, fam, B, n, mi, me, seed=1):
+    ds = generate(fam, num_var=n, num_ineq=mi, num_eq=me, data_size=B,
+                  seed=seed)
+    d = to_qp_batch(ds, device=dev)
+    return [d.Q, d.p, d.A0, d.zl, d.zu]
+
+
+def _ruiz_outputs(r):
+    return (*r[:5], r[5].d, r[5].e, r[5].cost)
+
+
+def _ruiz_check(args, iters):
+    """The kernel (through ``ruiz_scale``) bitwise its plain version in its
+    mean's order and bitwise a second call; within RUIZ_TOL of the eager
+    function (bitwise where the means agree), ±inf where it has ±inf; one
+    launch a call."""
+    from iadmm_tpu_torch.kernels import ruiz_kernel as rk
+    from iadmm_tpu_torch.scaling.ruiz import ruiz_scale, ruiz_scale_plain
+    before = rk.ruiz_scale_cuda.launches
+    got = _ruiz_outputs(ruiz_scale(*args, iters=iters))
+    again = _ruiz_outputs(rk.ruiz_scale_cuda(*args, iters=iters))
+    assert rk.ruiz_scale_cuda.launches == before + 2
+    plain = _ruiz_outputs(rk.ruiz_plain(*args, iters=iters))
+    eager = _ruiz_outputs(ruiz_scale_plain(*args, iters=iters))
+    names = ("Q", "p", "A0", "zl", "zu", "d", "e", "cost")
+    for name, a, a2, b, c in zip(names, got, again, plain, eager):
+        assert a.dtype == torch.float32 and a.shape == c.shape, name
+        assert torch.equal(a, a2), name
+        assert torch.equal(a, b), name
+        fin = torch.isfinite(c)
+        assert torch.equal(a[~fin], c[~fin]), name
+        gap = float((a[fin] - c[fin]).abs().max()) if fin.any() else 0.0
+        assert gap <= RUIZ_TOL * float(c[fin].abs().max()), (name, gap)
+    return got
+
+
+@pytest.mark.parametrize("iters", [0, 1, 10])
+@pytest.mark.parametrize("fam,B,n,mi,me", RUIZ_SHAPES)
+def test_ruiz_matches_plain(dev, fam, B, n, mi, me, iters):
+    """Also: the kernel's mean order has the block width of the plain
+    version's."""
+    from iadmm_tpu_torch.kernels import ruiz_kernel as rk
+    _ruiz_check(_ruiz_args(dev, fam, B, n, mi, me), iters)
+    plan = rk.ruiz_plan(B, n, mi + me, dev)
+    assert plan.mean_width == rk.mean_width(B, n)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 10])
+def test_ruiz_clamps_and_zero_lines(dev, iters):
+    """A zero column of [Q; A0] and a zero row of A0 (their norms clamp to
+    the floor and reset to 1), a tiny row (the same), and an instance
+    scaled by 1e10 (its norms clamp at 1e4)."""
+    Q, p, A0, zl, zu = _ruiz_args(dev, "QP", 3, 64, 20, 12, seed=2)
+    Q[0, :, 5] = 0
+    Q[0, 5, :] = 0
+    A0[0, :, 5] = 0
+    A0[0, 7, :] = 0
+    A0[2, 3, :] *= 1e-9
+    Q[1] *= 1e10
+    A0[1] *= 1e10
+    got = _ruiz_check([Q, p, A0, zl, zu], iters)
+    if iters:
+        d, e = got[5], got[6]
+        assert float(d[0, 5]) == 1.0 and float(e[0, 7]) == 1.0
+
+
+def test_ruiz_rejects_other_dtypes(dev):
+    """CUDA data in another dtype than float32 raise; nothing launches."""
+    from iadmm_tpu_torch.kernels import ruiz_kernel as rk
+    from iadmm_tpu_torch.scaling import ruiz_scale
+    args = [t.double() for t in _ruiz_args(dev, "QP", 2, 20, 10, 10)]
+    before = rk.ruiz_scale_cuda.launches
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        ruiz_scale(*args)
+    assert rk.ruiz_scale_cuda.launches == before
+
+
+def test_ruiz_every_cuda_solve_launches_the_kernel(dev):
+    """Each solve on CUDA data scales through csrc/ruiz.cu, once."""
+    from iadmm_tpu_torch.api import make_solver
+    from iadmm_tpu_torch.kernels import ruiz_kernel as rk
+    params = lstm_init(torch.Generator().manual_seed(0), 2, 16, 4,
+                       device=dev)
+    solve = make_solver(params, hidden_dim=16, num_iters=4)
+    data = to_qp_batch(generate("QP", num_var=20, num_ineq=10, num_eq=10,
+                                data_size=2, seed=3), device=dev)
+    before = rk.ruiz_scale_cuda.launches
+    for k in range(3):
+        solve(data)
+        assert rk.ruiz_scale_cuda.launches == before + k + 1

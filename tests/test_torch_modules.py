@@ -108,9 +108,17 @@ def test_to_qp_batch_matches(ds, jdata):
     assert int(t.eq_mask.sum()) == B * ME
 
 
-def test_scale_batch_matches(jdata, tdata):
+def test_scale_batch_matches(jdata, tdata, monkeypatch):
+    """CPU data take the plain function: nothing built, nothing launched."""
+    from iadmm_tpu_torch.kernels import _build, ruiz_kernel
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU call reached the kernel build")
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "library", refuse)
     js, jsc = j_scale_batch(jdata, iters=10)
     ts, tsc = t_scale_batch(tdata, iters=10)
+    assert ruiz_kernel.ruiz_scale_cuda.launches == 0
     for f in ("Q", "p", "A0", "zl", "zu"):
         assert_close(getattr(ts, f), getattr(js, f), 1e-10, 1e-14, f)
     for f in ("d", "e", "cost"):
